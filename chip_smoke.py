@@ -1,20 +1,34 @@
-"""Drive the PyTorch/CUDA port's imagine-and-score path on one GPU.
+"""Drive the PyTorch/CUDA port on one GPU: train the NeRF field, then
+imagine-and-score with it.
 
     python3 chip_smoke.py            # needs one card
-    python3 chip_smoke.py --profile  # also print a torch.profiler breakdown
-                                     # of one 32-pose clip group
+    python3 chip_smoke.py --profile  # also print torch.profiler breakdowns of
+                                     # five training steps and of one
+                                     # 32-pose clip group
+    D2R_SMOKE_TRAIN_STEPS=600 python3 chip_smoke.py   # a shorter training run
 
 Phases (any failure raises; the exit code is then nonzero):
   0 device      require CUDA; print the card's name and power limit
   1 build       compile every kernel under dream2real_tpu_torch/csrc (nvcc)
   2 kernels     each kernel against its plain PyTorch version on the card at
-                the main path's shapes, timed (CUDA events, median), with its
-                roofline bound and a one-call PyTorch yardstick
-  3 main path   bench.py's workload: synth scene, 336^2 view, plain-torch
-                background render, random-weight ViT-L/14-336, hash-tokenized
-                captions through encode_text (K4), 512 poses through
-                make_imagine_and_score (fg_crop 128, clip_batch 32), smoothed
-                [16, 32, 1, 1, 1, 1] argmax; launch counters checked
+                its path's shapes, timed (CUDA events, median), with its
+                roofline bound and a one-call PyTorch yardstick where one
+                exists: K1-K4 at the main path's, K5-K8 at one training
+                batch's (8192 rays, 32 coarse + 64 drawn samples, seeded field)
+  T training    the port's selftest (cli/selftest.py): the flagship field on
+                the synth scene, 336^2, 36 views, 8192 rays, 32 + 32 samples,
+                depth supervision, 3000 steps; steps/s, final loss, and the
+                selftest's bar (PSNR > 22 dB, median depth error < 5 cm);
+                1 K5, 1 K6 and 1 K7 launch a step, no K8; K7 against its
+                plain version on the trained field; two fresh 20-step runs
+                from one seed bit-identical; a 20-step run with
+                D2R_FUSED_SAMPLER=0, which launches K8
+  3 main path   bench.py's workload on the trained field: synth scene, 336^2
+                view, plain-torch background render, random-weight
+                ViT-L/14-336, hash-tokenized captions through encode_text
+                (K4), 512 poses through make_imagine_and_score (fg_crop 128,
+                clip_batch 32), smoothed [16, 32, 1, 1, 1, 1] argmax; launch
+                counters checked; K1 timed on the trained field
   4 main vs plain  one 32-pose clip group through the kernels and through
                 their plain versions: renders, image and text embeddings and
                 logits held; the score ratio and argmax reported
@@ -23,6 +37,7 @@ The second-to-last line is the kernels JSON, the last the device JSON.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -39,6 +54,15 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SEED = 0
+# Random-weight main-path rate of the first port slice (one H100, 700 W),
+# printed beside this run's trained-field rate.
+RANDOM_FIELD_POSES_S = 221.16
+# Field MACs per sample (the reference's kernel shapes): the trunk 64 -> 256,
+# 2 x 256^2, 320 -> 256, 256 -> 16; the colour head 31 -> 64 -> 64 -> 8; the
+# density-only trunk (sigma rows of the last layer only).
+TRUNK_MACS = 64 * 256 + 2 * 256 * 256 + 320 * 256 + 256 * 16
+COLOUR_MACS = 31 * 64 + 64 * 64 + 64 * 8
+DENSITY_MACS = TRUNK_MACS - 256 * 8
 
 
 def log(*args):
@@ -74,13 +98,15 @@ def main() -> int:
         return 2
 
     from dream2real_tpu_torch import build
+    from dream2real_tpu_torch.cli.selftest import SELFTEST_AABB, run_selftest
     from dream2real_tpu_torch.clip import model as cm
     from dream2real_tpu_torch.clip.scorer import build_captions
     from dream2real_tpu_torch.clip.tokenizer import hash_tokenize
     from dream2real_tpu_torch.data import synth
-    from dream2real_tpu_torch.nerf import combined, march_kernel as mk
+    from dream2real_tpu_torch.nerf import combined, march_kernel as mk, train_kernel as tk
     from dream2real_tpu_torch.nerf.model import NGPConfig, init_ngp_params
     from dream2real_tpu_torch.nerf.render import RenderSettings, render_image
+    from dream2real_tpu_torch.nerf.trainer import init_train_state, make_train_chunk
     from dream2real_tpu_torch.ops import attention as att
     from dream2real_tpu_torch.ops import cameras
     from dream2real_tpu_torch.parallel.imagine import make_imagine_and_score
@@ -115,7 +141,7 @@ def main() -> int:
     f = 0.9 * res
     K = np.array([[f, 0, res / 2], [0, f, res / 2], [0, 0, 1.0]])
     cams = synth.orbit_poses(scene.centre, 16, radius=0.5, height=0.4)
-    ngp_cfg = NGPConfig(aabb_min=(0.0, -0.6, -0.1), aabb_max=(1.1, 0.6, 0.9))
+    ngp_cfg = NGPConfig(**SELFTEST_AABB)  # the selftest's field box, which bench.py uses too
     settings = RenderSettings(n_coarse=32, n_fine=32, near=0.05, far=2.0)
     crop_settings = settings._replace(n_coarse=int(os.environ.get("D2R_CROP_SAMPLES", "20")),
                                       n_fine=0)
@@ -143,7 +169,7 @@ def main() -> int:
             f"max |kernel - plain| {max_err:.3e}")
 
     # ---------------------------------------------------------- 2 kernels
-    phase("2 kernels against their plain versions (main-path shapes)")
+    phase("2 kernels against their plain versions (their paths' shapes)")
     with torch.inference_mode():
         # K1: one clip group of candidate poses, 128^2 crop rays each; the
         # kernel gets the rays that hit the object box, as on the main path.
@@ -249,6 +275,181 @@ def main() -> int:
         )
         del x, qkv, q3, k3, v3
 
+        # K5-K8: one training batch of the selftest configuration on the
+        # seeded field: 8192 rays through random pixels of the 36-view synth
+        # orbit, jittered coarse samples, K5's 64 draws as the samples of K6
+        # and K7, K8 on the coarse samples.
+        R, nc, n_draw = 8192, settings.n_coarse, settings.n_coarse + settings.n_fine
+        orbit = torch.as_tensor(synth.orbit_poses(scene.centre, 36, radius=0.5, height=0.4),
+                                dtype=torch.float32, device=dev)
+        pick = torch.randint(0, 36, (R,), generator=gen, device=dev)
+        pix = torch.randint(0, res * res, (R,), generator=gen, device=dev)
+        o_t = orbit[pick, :3, 3].contiguous()
+        d_t = torch.einsum("bij,bj->bi", orbit[pick, :3, :3], dirs_cam.reshape(-1, 3)[pix])
+        d_t = d_t.contiguous()
+        tw, tb = tk.pack_train_params(field.params())
+        tbox = tk.field_box(ngp_cfg, dev)
+        ts_c, _ = tk.coarse_samples(ngp_cfg, o_t, d_t, settings, gen)
+        draws = tk.exp_draws(R, n_draw, gen, dev)
+        k5_args = (o_t, d_t, ts_c, draws, tbox, tw, tb, n_draw, settings.min_transmittance,
+                   tk.sampler_mix_default())
+        ts_t = tk.density_sample(*k5_args)
+        err5 = float((ts_t - tk.density_sample_plain(*k5_args)).abs().max())
+        step5 = float((ts_t[:, 1:] - ts_t[:, :-1]).min())
+        inside = bool((ts_t >= ts_c[:, :1] - 1e-5).all() and (ts_t <= ts_c[:, -1:] + 1e-5).all())
+        log(f"  K5: draws sorted (least step {step5:.3e}), inside the coarse range: {inside}")
+        if err5 > 1e-2 or step5 < -1e-6 or not inside:
+            raise AssertionError(f"K5: kernel vs plain max abs {err5} > 1e-2, or unsorted draws")
+        record(
+            "density_sample (K5)", "dream2real_tpu_torch/csrc/train.cu",
+            "dream2real_tpu/nerf/train_kernel.py:872", err5,
+            time_ms(lambda: tk.density_sample(*k5_args), 10),
+            time_ms(lambda: tk.density_sample_plain(*k5_args), 3),
+            2.0 * DENSITY_MACS * R * nc, R * (6 + nc + n_draw + 1 + n_draw) * 4 + tw.numel() * 2,
+            None,
+        )
+        k6_args = (o_t, d_t, ts_t, tbox, tw, tb, settings.min_transmittance)
+        C, A, D = tk.train_fwd(*k6_args)
+        fwd_plain = tk.train_fwd_plain(*k6_args)
+        err6 = max(float((a - c).abs().max()) for a, c in zip((C, A, D), fwd_plain))
+        if err6 > 5e-3:
+            raise AssertionError(f"K6: kernel vs plain max abs {err6} > 5e-3")
+        fwd_macs = TRUNK_MACS + COLOUR_MACS
+        record(
+            "train_fwd (K6)", "dream2real_tpu_torch/csrc/train.cu",
+            "dream2real_tpu/nerf/train_kernel.py:508", err6,
+            time_ms(lambda: tk.train_fwd(*k6_args), 10),
+            time_ms(lambda: tk.train_fwd_plain(*k6_args), 3),
+            2.0 * fwd_macs * R * n_draw, R * (6 + n_draw + 5) * 4 + tw.numel() * 2, None,
+        )
+        cot = (torch.randn(R, 3, generator=gen, device=dev),
+               torch.randn(R, generator=gen, device=dev),
+               0.1 * torch.randn(R, generator=gen, device=dev))
+        # Each backward takes its own forward's outputs, as in training: the
+        # closed form turns any difference between the saved outputs and the
+        # backward's recompute into gradient error.
+        g_slim, _, _ = tk.train_bwd(*k6_args, *cot, C, A, D, False)
+        g_full, go_k, gd_k = tk.train_bwd(*k6_args, *cot, C, A, D, True)
+        g_plain, go_p, gd_p = tk.train_bwd_plain(*k6_args, *cot, *fwd_plain, True)
+        if not torch.equal(g_slim, g_full):
+            raise AssertionError("K7: parameter gradients differ with and without ray gradients")
+        cos_f = torch.nn.functional.cosine_similarity
+        err7, worst_cos = 0.0, 1.0
+        for key, gk in tk.unpack_grads(g_full).items():
+            gp = tk.unpack_grads(g_plain)[key]
+            scale = max(float(gp.abs().max()), 1e-12)
+            c7 = float(cos_f(gk.reshape(1, -1).double(), gp.reshape(1, -1).double()))
+            e7 = float((gk - gp).abs().max()) / scale
+            err7, worst_cos = max(err7, e7), min(worst_cos, c7)
+            if c7 <= 0.995 or e7 > 8e-2:
+                raise AssertionError(f"K7: {key} cosine {c7}, max abs {e7} x scale")
+        ray_cos = [float(cos_f(a.reshape(1, -1).double(), b.reshape(1, -1).double()))
+                   for a, b in ((go_k, go_p), (gd_k, gd_p))]
+        log(f"  K7: parameter gradients worst {err7:.3e} x scale, least cosine {worst_cos:.6f}; "
+            f"origin / dir cosine {ray_cos[0]:.6f} / {ray_cos[1]:.6f}; bit-identical with and "
+            f"without ray gradients")
+        if min(ray_cos) <= 0.95:
+            raise AssertionError(f"K7: ray gradient cosines {ray_cos}")
+        # K7 without ray gradients, the training default; its work is the
+        # forward recompute plus the delta and weight-gradient products.
+        record(
+            "train_bwd (K7)", "dream2real_tpu_torch/csrc/train.cu",
+            "dream2real_tpu/nerf/train_kernel.py:581", err7,
+            time_ms(lambda: tk.train_bwd(*k6_args, *cot, C, A, D, False), 10),
+            time_ms(lambda: tk.train_bwd_plain(*k6_args, *cot, *fwd_plain, False), 3),
+            3.0 * 2.0 * fwd_macs * R * n_draw,
+            R * (6 + n_draw + 10) * 4 + tw.numel() * 2 + tk.N_G * 4, None,
+        )
+        k8_args = (o_t, d_t, ts_c, tbox, tw, tb, settings.min_transmittance)
+        w8 = tk.density_weights(*k8_args)
+        err8 = float((w8 - tk.density_weights_plain(*k8_args)).abs().max())
+        if err8 > 5e-3:
+            raise AssertionError(f"K8: kernel vs plain max abs {err8} > 5e-3")
+        record(
+            "density_weights (K8)", "dream2real_tpu_torch/csrc/train.cu",
+            "dream2real_tpu/nerf/train_kernel.py:450", err8,
+            time_ms(lambda: tk.density_weights(*k8_args), 10),
+            time_ms(lambda: tk.density_weights_plain(*k8_args), 3),
+            2.0 * DENSITY_MACS * R * nc, R * (6 + 2 * nc) * 4 + tw.numel() * 2, None,
+        )
+        del C, A, D, fwd_plain, g_slim, g_full, g_plain
+
+    # ------------------------------------------------------------- T training
+    phase("T training (the port's selftest: 336^2, 36 views, 8192 rays, 32 + 32)")
+    train_fns = {"density_sample (K5)": tk.density_sample, "train_fwd (K6)": tk.train_fwd,
+                 "train_bwd (K7)": tk.train_bwd, "density_weights (K8)": tk.density_weights}
+    for fn in train_fns.values():
+        fn.launches = 0
+    steps = int(os.environ.get("D2R_SMOKE_TRAIN_STEPS", "3000"))
+    t_train = time.perf_counter()
+    st = run_selftest(views=36, steps=steps, device=dev, log=lambda m: log(f"  {m}"))
+    train_launches = {k: fn.launches for k, fn in train_fns.items()}
+    log(f"  trained {st['steps']} steps in {time.perf_counter() - t_train:.1f} s of wall "
+        f"(data, kernel load, training and two 336^2 renders): {st['steps_per_s']:.2f} steps/s "
+        f"over the last {st['timed_steps']}; final loss {st['final_loss']:.5f}; launches "
+        f"{train_launches} ({name}; {smi})")
+    for key in ("density_sample (K5)", "train_fwd (K6)", "train_bwd (K7)"):
+        if train_launches[key] != st["steps"]:
+            raise AssertionError(
+                f"{key} launched {train_launches[key]} times in {st['steps']} steps")
+    if train_launches["density_weights (K8)"] != 0:
+        raise AssertionError("K8 launched on the fused-sampler path")
+    for tag, psnr_, derr_ in (("view 5", st["psnr"], st["depth_err_m"]),
+                              ("held-out view", st["psnr_held_out"], st["depth_err_held_out_m"])):
+        if not (psnr_ > 22.0 and derr_ < 0.05):
+            raise AssertionError(f"selftest bar missed on the {tag}: PSNR {psnr_:.2f} dB (> 22), "
+                                 f"median depth error {derr_ * 1000:.1f} mm (< 50)")
+    # K7 against its plain version on a batch of the trained field.
+    field_t = st["state"]["field"]
+    tw_t, tb_t = tk.pack_train_params(field_t.params())
+    with torch.inference_mode():
+        ts_tr = tk.density_sample(o_t, d_t, ts_c, draws, tbox, tw_t, tb_t, n_draw,
+                                  settings.min_transmittance, tk.sampler_mix_default())
+        k6_tr = (o_t, d_t, ts_tr, tbox, tw_t, tb_t, settings.min_transmittance)
+        g_k = tk.unpack_grads(tk.train_bwd(*k6_tr, *cot, *tk.train_fwd(*k6_tr), False)[0])
+        g_p = tk.unpack_grads(
+            tk.train_bwd_plain(*k6_tr, *cot, *tk.train_fwd_plain(*k6_tr), False)[0])
+    err_tr, cos_tr = 0.0, 1.0
+    for key in g_k:
+        scale = max(float(g_p[key].abs().max()), 1e-12)
+        err_tr = max(err_tr, float((g_k[key] - g_p[key]).abs().max()) / scale)
+        cos_tr = min(cos_tr, float(cos_f(g_k[key].reshape(1, -1).double(),
+                                         g_p[key].reshape(1, -1).double())))
+    log(f"  K7 on the trained field: parameter gradients within {err_tr:.3e} x scale of the plain "
+        f"version, least cosine {cos_tr:.6f}")
+    if err_tr > 8e-2 or cos_tr <= 0.995:
+        raise AssertionError(f"K7 on the trained field: {err_tr} x scale, cosine {cos_tr}")
+    # Training is deterministic: two fresh 20-step runs from one seed end
+    # with the same parameters, bit for bit.
+    tc20 = dataclasses.replace(st["tc"], poll_steps=20)
+    runs = []
+    for _ in range(2):
+        state20 = init_train_state(st["cfg"], tc20, n_images=36, device=dev)
+        make_train_chunk(st["cfg"], tc20, settings, **st["data"])(state20)
+        runs.append([p.detach().clone() for p in state20["field"].parameters()])
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("two training runs from one seed differ")
+    log("  two 20-step training runs from one seed: parameters bit-identical")
+    # The D2R_FUSED_SAMPLER=0 path: K8's coarse weights, sample_pdf and the
+    # sorted union, on a fresh state for a few steps.
+    os.environ["D2R_FUSED_SAMPLER"] = "0"
+    try:
+        for fn in train_fns.values():
+            fn.launches = 0
+        state8 = init_train_state(st["cfg"], tc20, n_images=36, device=dev)
+        _, loss8 = make_train_chunk(st["cfg"], tc20, settings, **st["data"])(state8)
+        k8_launches = {k: fn.launches for k, fn in train_fns.items()}
+    finally:
+        os.environ["D2R_FUSED_SAMPLER"] = "1"
+    log(f"  D2R_FUSED_SAMPLER=0: 20 steps, loss {loss8:.5f}, launches {k8_launches}")
+    if k8_launches["density_weights (K8)"] != 20 or k8_launches["density_sample (K5)"] != 0:
+        raise AssertionError("the D2R_FUSED_SAMPLER=0 path did not run through K8")
+    for k in kernels:
+        if k["name"] in train_fns:
+            k["launches"] = (k8_launches if k["name"] == "density_weights (K8)"
+                             else train_launches)[k["name"]]
+    field = field_t
+
     # -------------------------------------------------------- 3 main path
     phase("3 main path (bench.py workload, 512 poses)")
     wrappers = {"march (K1)": mk.march, "ln_qkv_attention (K2)": att.mha_ln_qkv,
@@ -315,7 +516,21 @@ def main() -> int:
     if launches["attention_causal (K4)"] != clip_cfg.text_layers:
         raise AssertionError(f"K4 launched {launches['attention_causal (K4)']} != 12")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
+    log(f"  trained field {n / dt:.2f} poses/s; the first port slice's random field "
+        f"{RANDOM_FIELD_POSES_S} poses/s (one H100, 700 W)")
+    # K1 on the trained field: the first clip group's live rays, as phase 2
+    # timed it on the random field.
+    with torch.inference_mode():
+        live_t, *k1_t, box_t = mk.march_inputs(ngp_cfg, T_WC_2[:, :3, 3].contiguous(), dirs,
+                                               obj_aabb, crop_settings)
+        args_t = (*k1_t, box_t, *mk.pack_params(field), crop_settings.n_coarse,
+                  crop_settings.min_transmittance)
+        *_, needed_t = mk.march_plain(*args_t, True, count_samples=True)
+        log(f"  K1 on the trained field: {time_ms(lambda: mk.march(*args_t, True), 10):.4f} ms "
+            f"per clip group ({int(live_t.numel())} live rays, {needed_t} samples needed; bound "
+            f"{bound_ms(2.0 * macs * needed_t, 0)[0]:.4f} ms)")
 
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprofile
@@ -324,6 +539,22 @@ def main() -> int:
             score_fn(*args3, poses[:clip_batch])
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+        # Five training steps of the selftest configuration on a fresh state
+        # (after one warm step): the breakdown of one step's device time.
+        tc5 = dataclasses.replace(st["tc"], poll_steps=5)
+        state5 = init_train_state(st["cfg"], tc5, n_images=36, device=dev)
+        chunk5 = make_train_chunk(st["cfg"], dataclasses.replace(tc5, poll_steps=1), settings,
+                                  **st["data"])
+        chunk5(state5)
+        chunk5 = make_train_chunk(st["cfg"], tc5, settings, **st["data"])
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            chunk5(state5)
+            torch.cuda.synchronize()
+        log(f"  5 training steps in {(time.perf_counter() - t5) * 1e3:.1f} ms of wall under the "
+            f"profiler")
+        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
     # --------------------------------------------------- 4 main vs plain
     phase("4 main path through the kernels vs through their plain versions")

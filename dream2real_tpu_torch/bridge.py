@@ -1,5 +1,6 @@
-"""Weight bridge: the reference's parameter pytrees (as numpy arrays) into
-the port's modules, so both packages run the same parameters.
+"""Weight bridge between the reference's parameter pytrees (as numpy arrays)
+and the port's modules, so both packages run the same parameters: JAX
+pytrees into the port, and a port field back out (``field_to_numpy``).
 
 NGP keys: trunk_w0..4, trunk_b0..4, color_w0..2 (f32, (in, out)).
 CLIP keys: v_*, t_*, v_blk{i} / t_blk{i} with ln1_g/b, ln2_g/b and
@@ -42,6 +43,12 @@ def field_from_jax(params: Mapping, cfg: NGPConfig, device=None) -> NGPField:
     for k, p in own.items():
         _copy(p, params[k], k)
     return field
+
+
+def field_to_numpy(field: NGPField) -> dict[str, np.ndarray]:
+    """A port field -> {key: f32 array} in the reference's (in, out) layout,
+    the pytree its ``field_fn`` takes (``jnp.asarray`` each to use it)."""
+    return {k: p.detach().cpu().numpy().astype(np.float32) for k, p in field.named_parameters()}
 
 
 def clip_from_jax(params: Mapping, cfg: CLIPConfig, device=None) -> CLIPModel:

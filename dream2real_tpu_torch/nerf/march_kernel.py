@@ -57,6 +57,7 @@ def supports(cfg: NGPConfig, settings: RenderSettings) -> bool:
     )
 
 
+@torch.no_grad()
 def pack_params(field: NGPField) -> tuple[torch.Tensor, torch.Tensor]:
     """Fold the flagship field's weights into (w bf16 (N_W,), b f32 (N_B,))."""
     p = field.params()

@@ -71,17 +71,16 @@ def layer_dims(cfg: NGPConfig) -> dict[str, tuple[int, ...]]:
 
 
 class NGPField(nn.Module):
-    """The field's parameters under the reference's flat keys (f32,
-    (in, out) layout) plus its config."""
+    """The field's trainable parameters under the reference's flat keys (f32,
+    (in, out) layout) plus its config. Serving runs under
+    ``torch.inference_mode``; training differentiates through them."""
 
     def __init__(self, cfg: NGPConfig, device=None):
         super().__init__()
         self.cfg = cfg
         dev = resolve_device(device)
         for k, shape in layer_dims(cfg).items():
-            self.register_parameter(
-                k, nn.Parameter(torch.zeros(shape, dtype=F32, device=dev), requires_grad=False)
-            )
+            self.register_parameter(k, nn.Parameter(torch.zeros(shape, dtype=F32, device=dev)))
 
     def params(self) -> dict[str, torch.Tensor]:
         return dict(self.named_parameters())
@@ -142,9 +141,26 @@ def posenc(p: torch.Tensor, deg: int) -> torch.Tensor:
     return torch.cat([p, torch.sin(flat), torch.cos(flat)], dim=-1)
 
 
+class _TruncExp(torch.autograd.Function):
+    """exp(clamp(x, -15, 15)) whose gradient is y * dx everywhere, the
+    reference's custom JVP: no clamp mask, so the density keeps a gradient
+    where the clamp is active."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.exp(torch.clamp(x, -15.0, 15.0))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        return dy * y
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     """exp with clamped input (instant-ngp's density activation)."""
-    return torch.exp(torch.clamp(x, -15.0, 15.0))
+    return _TruncExp.apply(x)
 
 
 def _aabb(cfg: NGPConfig, device):

@@ -1,10 +1,13 @@
 """Hierarchical volumetric ray marcher + compositor (port of
-dream2real_tpu/nerf/render.py, rendering only: deterministic midpoint
-samples, no training jitter).
+dream2real_tpu/nerf/render.py).
 
 Ray directions are z-normalized (t equals z-depth; metric length uses |d|).
 Returned RGB is premultiplied-alpha linear radiance. This is plain PyTorch
-on any device; the background view of the imagine loop is rendered here.
+on any device and differentiable: the background view of the imagine loop is
+rendered here, and training takes it with ``D2R_PALLAS_TRAIN=0`` (exact
+autograd, extrinsics gradients included). Without a generator the samples
+are deterministic midpoints (rendering); with one, the coarse samples are
+stratified-jittered and the fine ones drawn at random quantiles (training).
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ def ray_aabb(origins: torch.Tensor, dirs: torch.Tensor, aabb_min, aabb_max):
     return t0, t1
 
 
-def sample_pdf(ts: torch.Tensor, weights: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """Inverse-CDF importance sampling at the CDF quantile midpoints.
+def sample_pdf(ts: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverse-CDF importance sampling: at the CDF quantile midpoints, or at
+    uniform random quantiles drawn from ``generator`` (training).
 
     ts: (..., S) sorted positions; weights (..., S) >= 0 -> (..., n_samples).
     Bin selection is a one-hot contraction, like the reference.
@@ -53,8 +58,11 @@ def sample_pdf(ts: torch.Tensor, weights: torch.Tensor, n_samples: int) -> torch
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # (..., S+1)
 
-    u = (torch.arange(n_samples, dtype=F32, device=ts.device) + 0.5) / n_samples
-    u = u.expand(ts.shape[:-1] + (n_samples,))
+    if generator is None:
+        u = (torch.arange(n_samples, dtype=F32, device=ts.device) + 0.5) / n_samples
+        u = u.expand(ts.shape[:-1] + (n_samples,))
+    else:
+        u = torch.rand(ts.shape[:-1] + (n_samples,), generator=generator, device=ts.device)
     below = (cdf[..., None, :] <= u[..., :, None]).to(F32)
     sel = below[..., :-1] * (1.0 - below[..., 1:])  # (..., n, S) one-hot bin
     sel[..., -1] += below[..., -1]  # u >= cdf[-1] falls in the last bin
@@ -91,10 +99,12 @@ def render_rays(
     dirs: torch.Tensor,
     settings: RenderSettings,
     march_aabb=None,
+    generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
     """March rays through the field. origins/dirs (..., 3) world, dirs
     z-normalized. Returns premultiplied 'rgb' (..., 3), 'alpha', 'depth',
-    'weights', 'ts'.
+    'weights', 'ts'. ``generator`` (training) jitters the coarse samples
+    within their strata and randomises the fine draws.
 
     march_aabb: optional tighter (lo, hi) box; the t-range comes from it and
     density outside it is zeroed.
@@ -111,6 +121,9 @@ def render_rays(
 
     nc = settings.n_coarse
     frac = (torch.arange(nc, dtype=F32, device=dirs.device) + 0.5) / nc
+    if generator is not None:
+        jitter = torch.rand(origins.shape[:-1] + (nc,), generator=generator, device=dirs.device)
+        frac = frac + (jitter - 0.5) / nc
     ts_c = t0[..., None] + (t1 - t0)[..., None] * frac
 
     if settings.n_fine > 0:
@@ -120,7 +133,7 @@ def render_rays(
             sigma_c, torch.zeros(sigma_c.shape + (3,), device=dirs.device), ts_c,
             d_norm, settings.min_transmittance,
         )
-        ts_f = sample_pdf(ts_c, w_c, settings.n_fine)
+        ts_f = sample_pdf(ts_c, w_c.detach(), settings.n_fine, generator)
         ts_all = torch.sort(torch.cat([ts_c, ts_f], dim=-1), dim=-1).values
     else:
         ts_all = ts_c

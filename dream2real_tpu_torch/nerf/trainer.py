@@ -1,0 +1,278 @@
+"""NGP training loop (port of dream2real_tpu/nerf/trainer.py), single device.
+
+``make_train_chunk`` builds ``train_chunk(state) -> (state, mean task loss)``,
+which runs ``poll_steps`` optimizer steps and waits for the device once, and
+``train_with_governor`` drives chunks under the reference's convergence
+governor (stable polls, relaxed thresholds, x1.3 extensions up to a cap).
+Per step, as the reference:
+
+- rays: ``batch_rays`` random pixels of random images; with ``fg_pixels``
+  (alpha-masked task fields) half of them from the opaque pixels;
+- random-background alpha supervision and Huber(0.1) x 2 on sRGB;
+- depth Huber(0.05) on solid pixels with valid depth (``depth_weight``);
+- free-space carving in front of the observed depth for masked task fields,
+  on the plain field with stop-gradient ray geometry (gradient only: the
+  reported loss is the task loss);
+- learnable per-image se(3) extrinsics, gated to zero before
+  ``ext_start_step``, picked per ray by a one-hot product.
+
+The render is ``render_rays_train`` (K5 + K6 + K7 on the card) when the field
+is the flagship one, else, or with ``D2R_PALLAS_TRAIN=0``, the plain
+differentiable ``render_rays``. Randomness comes from the state's
+``torch.Generator`` (seeded by ``TrainConfig.seed``); it draws other numbers
+than the reference's PRNG keys.
+
+Optimizer: for the field, ``wd * p`` added to the gradient, then Adam (b1
+0.9, b2 0.99, eps 1e-8) on a cosine schedule down to 1% of ``lr``: the
+reference's ``add_decayed_weights`` + ``adam`` chain, which is what
+``torch.optim.Adam(weight_decay=...)`` computes (``AdamW`` would not). The
+extrinsics take Adam at ``ext_lr``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import warnings
+
+import torch
+
+from dream2real_tpu_torch.device import F32, resolve_device
+from dream2real_tpu_torch.nerf.model import NGPConfig, density_fn, init_ngp_params
+from dream2real_tpu_torch.nerf.render import RenderSettings, render_rays
+from dream2real_tpu_torch.nerf.train_kernel import render_rays_train, supports_training
+from dream2real_tpu_torch.ops.image import linear_to_srgb, srgb_to_linear
+from dream2real_tpu_torch.ops.se3 import make_pose, so3_exp
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    n_steps: int = 2000
+    batch_rays: int = 4096
+    lr: float = 1e-2
+    ext_lr: float = 3e-4
+    ext_start_step: int = 256
+    weight_decay: float = 1e-6
+    optimize_extrinsics: bool = False
+    # RGB-D depth supervision weight; 0 disables.
+    depth_weight: float = 0.1
+    # Free-space carving for masked task fields (fg_pixels given); 0 disables.
+    freespace_weight: float = 0.1
+    freespace_samples: int = 8
+    # Convergence governor (the reference's train_ngp.py:95-97).
+    stable_polls_thresh: int = 50
+    stable_loss_thresh: float = 2e-4
+    max_infinity_steps: int = 40000
+    poll_steps: int = 100  # steps per chunk == one governor poll
+    dynamic_time_extension: bool = True
+    seed: int = 0
+
+
+def use_train_kernel(cfg: NGPConfig) -> bool:
+    """The fused kernels train the flagship field unless D2R_PALLAS_TRAIN=0."""
+    return os.environ.get("D2R_PALLAS_TRAIN") != "0" and supports_training(cfg)
+
+
+def cosine_lr(tc: TrainConfig, step: int) -> float:
+    """optax.cosine_decay_schedule(lr, max(n_steps, 1), alpha=0.01) at step."""
+    decay = max(tc.n_steps, 1)
+    frac = min(step, decay) / decay
+    return tc.lr * ((1.0 - 0.01) * 0.5 * (1.0 + math.cos(math.pi * frac)) + 0.01)
+
+
+def init_train_state(cfg: NGPConfig, tc: TrainConfig, n_images: int, device=None) -> dict:
+    """Seeded field, zero extrinsics deltas, both optimizers, step 0."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(tc.seed)
+    field = init_ngp_params(cfg, gen, device=dev)
+    ext_rot = torch.zeros(n_images, 3, dtype=F32, device=dev, requires_grad=True)
+    ext_trans = torch.zeros(n_images, 3, dtype=F32, device=dev, requires_grad=True)
+    return {
+        "field": field,
+        "ext_rot": ext_rot,
+        "ext_trans": ext_trans,
+        "opt_field": torch.optim.Adam(field.parameters(), lr=tc.lr, betas=(0.9, 0.99), eps=1e-8,
+                                      weight_decay=tc.weight_decay),
+        "opt_ext": torch.optim.Adam([ext_rot, ext_trans], lr=tc.ext_lr, betas=(0.9, 0.99),
+                                    eps=1e-8),
+        "step": 0,
+        "generator": gen,
+    }
+
+
+def optimized_poses(ext_rot: torch.Tensor, ext_trans: torch.Tensor,
+                    init_poses: torch.Tensor) -> torch.Tensor:
+    """Compose the learned se(3) deltas onto the initial camera-to-world
+    poses (N, 4, 4), accio convention, in full f32."""
+    return init_poses @ make_pose(so3_exp(ext_rot), ext_trans)
+
+
+def _huber(x: torch.Tensor, delta: float) -> torch.Tensor:
+    """optax.huber_loss(x, delta=delta) elementwise."""
+    ax = x.abs()
+    return torch.where(ax <= delta, 0.5 * x * x, delta * (ax - 0.5 * delta))
+
+
+def make_train_chunk(
+    cfg: NGPConfig,
+    tc: TrainConfig,
+    settings: RenderSettings,
+    images_rgba: torch.Tensor,       # (N, H, W, 4) uint8, sRGB + alpha, on the device
+    init_poses: torch.Tensor,        # (N, 4, 4) accio camera-to-world
+    dirs_cam: torch.Tensor,          # (H, W, 3) z-normalized camera-frame pixel dirs
+    depths: torch.Tensor | None = None,      # (N, H, W) f32 z-depth metres, 0 = invalid
+    ray_sharding=None,
+    fg_pixels: torch.Tensor | None = None,   # (M, 3) int64 [img, y, x] opaque pixels
+):
+    """Build train_chunk(state) -> (state, mean task loss over the chunk)."""
+    if ray_sharding is not None:
+        raise NotImplementedError(
+            "ray_sharding: the port trains on one device (multi-device training is queued)")
+    n_img, h, w = images_rgba.shape[:3]
+    dev = images_rgba.device
+    use_kernel = use_train_kernel(cfg)
+    if tc.optimize_extrinsics and use_kernel:
+        warnings.warn(
+            "optimize_extrinsics with the fused training kernels uses approximate "
+            "ray-origin/direction gradients; set D2R_PALLAS_TRAIN=0 for exact autograd "
+            "extrinsics gradients.",
+            stacklevel=2,
+        )
+
+    def sample_batch(gen):
+        """-> (img_idx, py, px, bg, u_free): the step's rays, background
+        colours and free-space sample quantiles."""
+        img_idx = torch.randint(0, n_img, (tc.batch_rays,), generator=gen, device=dev)
+        py = torch.randint(0, h, (tc.batch_rays,), generator=gen, device=dev)
+        px = torch.randint(0, w, (tc.batch_rays,), generator=gen, device=dev)
+        bg = torch.rand(tc.batch_rays, 3, generator=gen, device=dev)
+        if fg_pixels is not None:
+            n_fg = tc.batch_rays // 2
+            sel = torch.randint(0, fg_pixels.shape[0], (n_fg,), generator=gen, device=dev)
+            chosen = fg_pixels[sel]
+            img_idx = torch.cat([chosen[:, 0], img_idx[n_fg:]])
+            py = torch.cat([chosen[:, 1], py[n_fg:]])
+            px = torch.cat([chosen[:, 2], px[n_fg:]])
+        u_free = torch.rand(tc.batch_rays, tc.freespace_samples, generator=gen, device=dev)
+        return img_idx, py, px, bg, u_free
+
+    def loss_fn(state, batch, render_generator):
+        """(loss to differentiate, task loss to report) of one batch; the
+        render draws its samples from render_generator (None: midpoints)."""
+        img_idx, py, px, bg, u_free = batch
+        target = images_rgba[img_idx, py, px].to(F32) / 255.0
+        target_rgb = srgb_to_linear(target[:, :3])
+        target_a = target[:, 3]
+
+        if tc.optimize_extrinsics:
+            # The gate zeroes the deltas (and their gradients) before
+            # ext_start_step; the one-hot product keeps the pick
+            # differentiable in every pose.
+            gate = float(state["step"] >= tc.ext_start_step)
+            poses = optimized_poses(state["ext_rot"] * gate, state["ext_trans"] * gate,
+                                    init_poses)
+            sel = torch.nn.functional.one_hot(img_idx, n_img).to(F32)
+            T = torch.einsum("bn,nij->bij", sel, poses)
+        else:
+            T = init_poses[img_idx]
+        d_cam = dirs_cam[py, px]
+        dirs = torch.einsum("bij,bj->bi", T[:, :3, :3], d_cam)
+        origins = T[:, :3, 3]
+
+        if use_kernel:
+            out = render_rays_train(state["field"], origins, dirs, settings, render_generator,
+                                    need_ray_grads=tc.optimize_extrinsics)
+        else:
+            out = render_rays(state["field"], origins, dirs, settings,
+                              generator=render_generator)
+        # Random-background alpha supervision.
+        pred = out["rgb"] + bg * (1.0 - out["alpha"][:, None])
+        tgt = target_rgb * target_a[:, None] + bg * (1.0 - target_a[:, None])
+        err = linear_to_srgb(torch.clamp(pred, 0.0, 1.0)) - linear_to_srgb(tgt)
+        loss = _huber(err, 0.1).mean() * 2.0
+        if depths is not None and tc.depth_weight > 0:
+            gt_d = depths[img_idx, py, px]
+            mask = (gt_d > 0) & (target_a > 0.5)
+            d_err = torch.where(mask, out["depth"] - gt_d, torch.zeros_like(gt_d))
+            loss = loss + tc.depth_weight * _huber(d_err, 0.05).mean()
+        task_loss = loss.detach()
+        if depths is not None and fg_pixels is not None and tc.freespace_weight > 0:
+            # Carving shapes the field only: the ray geometry is detached, or
+            # the term would pull the cameras off density.
+            o_sg, d_sg = origins.detach(), dirs.detach()
+            gt_free = depths[img_idx, py, px]
+            t_hi = torch.clamp(gt_free * 0.9, min=settings.near)
+            t_free = settings.near + u_free * (t_hi - settings.near)[:, None]
+            pos_f = o_sg[:, None, :] + d_sg[:, None, :] * t_free[..., None]
+            sigma_f, _ = density_fn(state["field"], pos_f)
+            dt = (t_hi - settings.near) / tc.freespace_samples * torch.linalg.norm(d_sg, dim=-1)
+            occ = 1.0 - torch.exp(-sigma_f * dt[:, None])
+            fmask = (gt_free > 0).to(F32)[:, None]
+            loss = loss + tc.freespace_weight * (occ * fmask).mean()
+        return loss, task_loss
+
+    def one_step(state):
+        opt_f, opt_e = state["opt_field"], state["opt_ext"]
+        opt_f.zero_grad(set_to_none=True)
+        opt_e.zero_grad(set_to_none=True)
+        gen = state["generator"]
+        loss, task_loss = loss_fn(state, sample_batch(gen), gen)
+        loss.backward()
+        for group in opt_f.param_groups:
+            group["lr"] = cosine_lr(tc, state["step"])
+        opt_f.step()
+        if tc.optimize_extrinsics:
+            opt_e.step()
+        state["step"] += 1
+        return task_loss
+
+    def train_chunk(state):
+        total = torch.zeros((), dtype=F32, device=dev)
+        for _ in range(tc.poll_steps):
+            total = total + one_step(state)
+        return state, float(total) / tc.poll_steps
+
+    train_chunk.loss_fn = loss_fn  # one batch's loss, for tests that inject a batch
+    return train_chunk
+
+
+def train_with_governor(train_chunk, state, tc: TrainConfig, log_fn=None):
+    """Run chunks under the dynamic-time-extension convergence governor.
+
+    Stop when more than stable_polls_thresh consecutive polls see loss <
+    stable_loss_thresh, or past max_infinity_steps; at n_steps, unless
+    converged or extension is off, relax the thresholds (x1.5 loss, /1.5
+    polls) and extend n_steps x1.3 up to the cap. -> (state, losses)."""
+    n_steps = tc.n_steps
+    stable_polls_thresh = tc.stable_polls_thresh
+    stable_loss_thresh = tc.stable_loss_thresh
+    stable_polls = 0
+    losses: list[float] = []
+
+    while True:
+        state, loss = train_chunk(state)
+        loss = float(loss)
+        step = int(state["step"])
+        losses.append(loss)
+        if log_fn is not None:
+            log_fn(step, loss)
+
+        if loss < stable_loss_thresh:
+            stable_polls += 1
+        else:
+            stable_polls = 0
+
+        if stable_polls > stable_polls_thresh or step > tc.max_infinity_steps:
+            break
+        if step >= n_steps:
+            if (
+                stable_polls > stable_polls_thresh and loss < stable_loss_thresh
+            ) or not tc.dynamic_time_extension:
+                break
+            stable_loss_thresh *= 1.5
+            stable_polls_thresh = int(stable_polls_thresh / 1.5)
+            n_steps = int(n_steps * 1.3)
+            if n_steps > tc.max_infinity_steps:
+                break
+    return state, losses

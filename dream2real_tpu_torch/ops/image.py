@@ -1,6 +1,6 @@
 """Image ops (port of the parts of dream2real_tpu/ops/image.py on the
-imagine-and-score path): center crop, cv2-exact cubic resize, torchvision-
-exact gaussian blur, linear -> sRGB."""
+imagine-and-score and training paths): center crop, cv2-exact cubic resize,
+torchvision-exact gaussian blur, linear <-> sRGB."""
 
 from __future__ import annotations
 
@@ -89,3 +89,9 @@ def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
     lo = x <= 0.0031308
     x_safe = torch.where(lo, torch.full_like(x, 0.0031308), x)
     return torch.where(lo, 12.92 * x, 1.055 * torch.pow(x_safe, 1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    """sRGB -> linear transfer (the training targets)."""
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(x <= 0.04045, x / 12.92, torch.pow((x + 0.055) / 1.055, 2.4))

@@ -38,6 +38,27 @@ def euler_angles_to_matrix(euler: torch.Tensor, convention: str = "XYZ") -> torc
     return (mats[0] @ mats[1]) @ mats[2]
 
 
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues exponential map so(3) -> SO(3). w: (..., 3) -> (..., 3, 3).
+
+    R = I + A K + B K^2 with K = skew(w), A = sin(t)/t, B = (1 - cos t)/t^2.
+    Taylor branches and a safe denominator keep the value and the gradient
+    finite at w == 0 (the learnable extrinsics start there).
+    """
+    theta_sq = (w * w).sum(dim=-1, keepdim=True)
+    small = theta_sq < 1e-8
+    theta_sq_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(theta_sq_safe)
+    A = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 - theta_sq / 24.0, (1.0 - torch.cos(theta)) / theta_sq_safe)
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zeros = torch.zeros_like(wx)
+    K = torch.stack([zeros, -wz, wy, wz, zeros, -wx, -wy, wx, zeros], dim=-1)
+    K = K.reshape(w.shape[:-1] + (3, 3))
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    return eye + A[..., None] * K + B[..., None] * (K @ K)
+
+
 def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 4, 4) homogeneous transforms from (..., 3, 3), (..., 3)."""
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)

@@ -105,3 +105,96 @@ def test_split_and_fused_attention_paths_agree(dev, monkeypatch):
         assert att.mha_qkv.launches - k3 == 2
     cos = torch.nn.functional.cosine_similarity(embs["1"], embs["0"], dim=-1)
     assert float(cos.min()) > 0.9995
+
+
+def _train_inputs(dev, R, S, seed=0):
+    """A seeded flagship field's packed weights and R rays from several
+    cameras toward the box interior, with sorted, irregular ts (R, S)."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    cfg = NGPConfig(aabb_min=(0.0, -0.6, -0.5), aabb_max=(1.1, 0.6, 0.9))
+    field = init_ngp_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    w, b = tk.pack_train_params(field.params())
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([0.2, -0.3, -1.2], [0.9, 0.3, -0.8], (R, 3))
+    d = rng.uniform([0.2, -0.4, -0.2], [0.9, 0.4, 0.6], (R, 3)) - o
+    d = d / d[:, 2:3]
+    ts = 0.3 + 1.3 * np.sort(rng.uniform(size=(R, S)), axis=1)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    return field, f32(o), f32(d), f32(ts), tk.field_box(cfg, dev), w, b, rng
+
+
+def _cos(a, b):
+    a, b = a.double().ravel(), b.double().ravel()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+def test_train_kernels_match_plain(dev):
+    """K5-K8 against their plain versions; 300 rays, not a multiple of the
+    kernels' 64-ray block."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    R, S = 300, 16
+    _, o, d, ts, box, w, b, rng = _train_inputs(dev, R, S)
+    before = (tk.train_fwd.launches, tk.train_bwd.launches, tk.density_weights.launches,
+              tk.density_sample.launches)
+    C, A, D = tk.train_fwd(o, d, ts, box, w, b, 1e-4)
+    for got, ref in zip((C, A, D), tk.train_fwd_plain(o, d, ts, box, w, b, 1e-4)):
+        torch.testing.assert_close(got, ref, atol=5e-3, rtol=0)
+    assert float(A.max()) > 0.05
+    torch.testing.assert_close(tk.density_weights(o, d, ts, box, w, b, 1e-4),
+                               tk.density_weights_plain(o, d, ts, box, w, b, 1e-4),
+                               atol=5e-3, rtol=0)
+    exp_draws = torch.tensor(-np.log(rng.uniform(1e-12, 1.0, (R, 33))), dtype=torch.float32,
+                             device=dev)
+    got = tk.density_sample(o, d, ts, exp_draws, box, w, b, 32, 1e-4, 0.5)
+    ref = tk.density_sample_plain(o, d, ts, exp_draws, box, w, b, 32, 1e-4, 0.5)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=0)
+    assert float((got[:, 1:] - got[:, :-1]).min()) >= -1e-6
+    assert bool((got >= ts[:, :1] - 1e-5).all()) and bool((got <= ts[:, -1:] + 1e-5).all())
+
+    cot = [torch.tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)
+           for s in ((R, 3), (R,), (R,))]
+    cot[2] = cot[2] * 0.1
+    # Each backward takes its own forward's outputs, as in training.
+    g_k, go_k, gd_k = tk.train_bwd(o, d, ts, box, w, b, 1e-4, *cot, C, A, D, True)
+    g_p, go_p, gd_p = tk.train_bwd_plain(o, d, ts, box, w, b, 1e-4, *cot,
+                                         *tk.train_fwd_plain(o, d, ts, box, w, b, 1e-4), True)
+    for name, gk in tk.unpack_grads(g_k).items():
+        gp = tk.unpack_grads(g_p)[name]
+        scale = max(float(gp.abs().max()), 1e-6)
+        assert _cos(gk, gp) > 0.995, name
+        torch.testing.assert_close(gk, gp, atol=8e-2 * scale, rtol=0, msg=name)
+    assert _cos(go_k, go_p) > 0.95 and _cos(gd_k, gd_p) > 0.95
+    # Deterministic, and the ray-gradient chain leaves the parameter
+    # gradients bit for bit as they are.
+    g_slim, go_slim, gd_slim = tk.train_bwd(o, d, ts, box, w, b, 1e-4, *cot, C, A, D, False)
+    assert torch.equal(g_slim, g_k)
+    assert float(go_slim.abs().max()) == 0.0 and float(gd_slim.abs().max()) == 0.0
+    assert torch.equal(tk.train_bwd(o, d, ts, box, w, b, 1e-4, *cot, C, A, D, True)[0], g_k)
+    after = (tk.train_fwd.launches, tk.train_bwd.launches, tk.density_weights.launches,
+             tk.density_sample.launches)
+    assert [a - c for a, c in zip(after, before)] == [1, 3, 1, 1]
+
+
+def test_render_rays_train_on_the_card(dev, monkeypatch):
+    """The training renderer's autograd path launches K5, K6, K7 once each
+    (K8 with D2R_FUSED_SAMPLER=0); miss rays give zeros."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+    from dream2real_tpu_torch.nerf.render import RenderSettings
+
+    field, o, d, _, _, _, _, _ = _train_inputs(dev, 256, 8, seed=1)
+    o[:64] = torch.tensor([0.5, 0.0, 5.0], device=dev)
+    d[:64] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    st = RenderSettings(n_coarse=16, n_fine=16, near=0.05, far=2.0)
+    for sampler, counts in (("1", (1, 1, 1, 0)), ("0", (0, 1, 1, 1))):
+        monkeypatch.setenv("D2R_FUSED_SAMPLER", sampler)
+        fns = (tk.density_sample, tk.train_fwd, tk.train_bwd, tk.density_weights)
+        before = [f.launches for f in fns]
+        gen = torch.Generator(device=dev).manual_seed(3)
+        out = tk.render_rays_train(field, o, d, st, gen, need_ray_grads=False)
+        (out["rgb"].sum() + out["alpha"].sum()).backward()
+        assert tuple(f.launches - n for f, n in zip(fns, before)) == counts
+        assert float(out["alpha"][:64].detach().abs().max()) == 0.0
+        assert all(torch.isfinite(p.grad).all() for p in field.parameters())
+        field.zero_grad()

@@ -57,8 +57,10 @@ def test_entry_points_refuse_a_silent_cpu_fallback():
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the CUDA default is valid here")
+    from dream2real_tpu_torch.cli.selftest import run_selftest
     from dream2real_tpu_torch.clip.model import CLIPConfig, CLIPModel
     from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField
+    from dream2real_tpu_torch.nerf.trainer import TrainConfig, init_train_state
     from dream2real_tpu_torch.nerf.render import RenderSettings
     from dream2real_tpu_torch.ops.cameras import pixel_dirs
     from dream2real_tpu_torch.parallel.imagine import make_imagine_and_score
@@ -73,6 +75,8 @@ def test_entry_points_refuse_a_silent_cpu_fallback():
         lambda: CLIPModel(tiny),
         lambda: make_imagine_and_score(NGPConfig(), tiny, RenderSettings(),
                                        pixel_dirs(8, 8, K, device="cpu"), 1),
+        lambda: init_train_state(NGPConfig(), TrainConfig(), 2),
+        lambda: run_selftest(views=2, steps=1, small=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

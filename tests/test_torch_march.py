@@ -84,10 +84,11 @@ def test_march_plain_matches_render_rays(fields):
         _settings(S, jrender), march_aabb=(jnp.asarray(LO), jnp.asarray(hi)),
     )
     out = _port(field, d, LO, hi, _settings(S, trender))
-    plain = trender.render_rays(
-        field, torch.from_numpy(ORIGIN).expand(R, 3), torch.from_numpy(d),
-        _settings(S, trender), march_aabb=(LO, hi),
-    )
+    with torch.no_grad():
+        plain = trender.render_rays(
+            field, torch.from_numpy(ORIGIN).expand(R, 3), torch.from_numpy(d),
+            _settings(S, trender), march_aabb=(LO, hi),
+        )
     for k in ("rgb", "alpha", "depth"):
         np.testing.assert_allclose(out[k], np.asarray(ref[k]), atol=5e-3, rtol=0)
         np.testing.assert_allclose(plain[k].numpy(), np.asarray(ref[k]), atol=1e-3, rtol=0)

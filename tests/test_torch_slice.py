@@ -72,7 +72,8 @@ def slice_run():
     jdirs = jcam.pixel_dirs(RES, RES, jnp.asarray(K))
     tdirs = tcam.pixel_dirs(RES, RES, K, device="cpu")
     jbg = jrender_image(jparams, jcfg, jnp.asarray(T_WC), jdirs, JSettings(**BG), row_chunk=8)
-    tbg = render_image(field, torch.from_numpy(T_WC), tdirs, RenderSettings(**BG), row_chunk=8)
+    with torch.no_grad():
+        tbg = render_image(field, torch.from_numpy(T_WC), tdirs, RenderSettings(**BG), row_chunk=8)
     # As CombinedRenderer.render_background with a GT depth and movable mask:
     # opaque alpha, depth from the scene with the movable object pushed to 100.
     _, gt_depth, inst = synth.render_scene(scene, T_WC, K, RES, RES)
@@ -146,7 +147,7 @@ def test_snapshot_interchange(tmp_path):
     assert tuple(field.cfg) == tuple(NGPConfig(**AABB))
     assert st == RenderSettings(24, 8, 0.1, 1.5, 1e-3, "bfloat16")
     for k, v in params.items():
-        np.testing.assert_array_equal(getattr(field, k).numpy(), np.asarray(v))
+        np.testing.assert_array_equal(getattr(field, k).detach().numpy(), np.asarray(v))
     # And back: a snapshot the port writes loads in the reference.
     path2 = os.path.join(tmp_path, "fg_port.ingp")
     tsnap.save_snapshot(path2, field, field.cfg, extra={"settings": settings})
