@@ -5,7 +5,6 @@ imagine-and-score with it.
     python3 chip_smoke.py --profile  # also print torch.profiler breakdowns of
                                      # five training steps and of one
                                      # 32-pose clip group
-    D2R_SMOKE_TRAIN_STEPS=600 python3 chip_smoke.py   # a shorter training run
 
 Phases (any failure raises; the exit code is then nonzero):
   0 device      require CUDA; print the card's name and power limit
@@ -57,12 +56,22 @@ SEED = 0
 # Random-weight main-path rate of the first port slice (one H100, 700 W),
 # printed beside this run's trained-field rate.
 RANDOM_FIELD_POSES_S = 221.16
-# Field MACs per sample (the reference's kernel shapes): the trunk 64 -> 256,
-# 2 x 256^2, 320 -> 256, 256 -> 16; the colour head 31 -> 64 -> 64 -> 8; the
-# density-only trunk (sigma rows of the last layer only).
-TRUNK_MACS = 64 * 256 + 2 * 256 * 256 + 320 * 256 + 256 * 16
-COLOUR_MACS = 31 * 64 + 64 * 64 + 64 * 8
-DENSITY_MACS = TRUNK_MACS - 256 * 8
+# The selftest's training steps, which phase T runs in full.
+TRAIN_STEPS = 3000
+# Field MACs per sample at the widths the function needs, not the kernels'
+# padded tiles: the trunk 63 -> 256, 2 x 256^2, 319 -> 256, 256 -> 16 (sigma
+# and 15 geometry features); the colour head 31 -> 64 -> 64 -> 3; the
+# density-only trunk, whose last layer is sigma's one column.
+TRUNK_MACS = 63 * 256 + 2 * 256 * 256 + 319 * 256 + 256 * 16
+COLOUR_MACS = 31 * 64 + 64 * 64 + 64 * 3
+DENSITY_MACS = 63 * 256 + 2 * 256 * 256 + 319 * 256 + 256 * 1
+# K7 without ray gradients: the forward recompute, the weight-gradient
+# products (as many MACs as the forward) and the delta products that feed
+# them: rgb -> c1 -> c0 -> the 15 geometry features, then h4 -> h3 -> h2 ->
+# h1 -> h0. The encoding's delta (w0 and w3's encoding rows, cw0's SH rows)
+# is needed only for ray gradients.
+DELTA_MACS = 64 * 3 + 64 * 64 + 15 * 64 + 256 * 16 + 3 * 256 * 256
+BWD_MACS = 2 * (TRUNK_MACS + COLOUR_MACS) + DELTA_MACS
 
 
 def log(*args):
@@ -197,7 +206,7 @@ def main() -> int:
             f"{n_live} rays hit the box, touching {int(touched.reshape(-1, 128).any(1).sum())} "
             f"of {n_all // 128} 128-ray blocks, {-(-n_live // 128)} blocks when launched "
             f"alone; {needed} samples needed")
-        macs = 63 * 256 + 2 * 256 * 256 + 319 * 256 + 256 * 16 + 31 * 64 + 64 * 64 + 64 * 3
+        macs = TRUNK_MACS + COLOUR_MACS
         record(
             "march (K1)", "dream2real_tpu_torch/csrc/march.cu",
             "dream2real_tpu/nerf/march_kernel.py:421", err,
@@ -350,14 +359,13 @@ def main() -> int:
             f"without ray gradients")
         if min(ray_cos) <= 0.95:
             raise AssertionError(f"K7: ray gradient cosines {ray_cos}")
-        # K7 without ray gradients, the training default; its work is the
-        # forward recompute plus the delta and weight-gradient products.
+        # K7 without ray gradients, the training default.
         record(
             "train_bwd (K7)", "dream2real_tpu_torch/csrc/train.cu",
             "dream2real_tpu/nerf/train_kernel.py:581", err7,
             time_ms(lambda: tk.train_bwd(*k6_args, *cot, C, A, D, False), 10),
             time_ms(lambda: tk.train_bwd_plain(*k6_args, *cot, *fwd_plain, False), 3),
-            3.0 * 2.0 * fwd_macs * R * n_draw,
+            2.0 * BWD_MACS * R * n_draw,
             R * (6 + n_draw + 10) * 4 + tw.numel() * 2 + tk.N_G * 4, None,
         )
         k8_args = (o_t, d_t, ts_c, tbox, tw, tb, settings.min_transmittance)
@@ -380,9 +388,8 @@ def main() -> int:
                  "train_bwd (K7)": tk.train_bwd, "density_weights (K8)": tk.density_weights}
     for fn in train_fns.values():
         fn.launches = 0
-    steps = int(os.environ.get("D2R_SMOKE_TRAIN_STEPS", "3000"))
     t_train = time.perf_counter()
-    st = run_selftest(views=36, steps=steps, device=dev, log=lambda m: log(f"  {m}"))
+    st = run_selftest(views=36, steps=TRAIN_STEPS, device=dev, log=lambda m: log(f"  {m}"))
     train_launches = {k: fn.launches for k, fn in train_fns.items()}
     log(f"  trained {st['steps']} steps in {time.perf_counter() - t_train:.1f} s of wall "
         f"(data, kernel load, training and two 336^2 renders): {st['steps_per_s']:.2f} steps/s "

@@ -159,6 +159,7 @@ def render_rays(
     }
 
 
+@torch.no_grad()
 def render_image(
     field: NGPField,
     T_WC: torch.Tensor,
@@ -169,7 +170,8 @@ def render_image(
     """Render a full image from camera pose T_WC (OpenCV convention, 4x4).
     dirs_cam (H, W, 3) from ops.cameras.pixel_dirs. Returns premultiplied
     'rgb' (H, W, 3), 'alpha', 'depth'. row_chunk > 0 bounds peak memory by
-    marching row blocks one after another."""
+    marching row blocks one after another. Rendering only: no autograd graph
+    is recorded (training goes through render_rays)."""
     h = dirs_cam.shape[0]
     dirs = torch.einsum("ij,hwj->hwi", T_WC[:3, :3], dirs_cam)
     origins = T_WC[:3, 3].expand(dirs.shape)

@@ -72,8 +72,7 @@ def slice_run():
     jdirs = jcam.pixel_dirs(RES, RES, jnp.asarray(K))
     tdirs = tcam.pixel_dirs(RES, RES, K, device="cpu")
     jbg = jrender_image(jparams, jcfg, jnp.asarray(T_WC), jdirs, JSettings(**BG), row_chunk=8)
-    with torch.no_grad():
-        tbg = render_image(field, torch.from_numpy(T_WC), tdirs, RenderSettings(**BG), row_chunk=8)
+    tbg = render_image(field, torch.from_numpy(T_WC), tdirs, RenderSettings(**BG), row_chunk=8)
     # As CombinedRenderer.render_background with a GT depth and movable mask:
     # opaque alpha, depth from the scene with the movable object pushed to 100.
     _, gt_depth, inst = synth.render_scene(scene, T_WC, K, RES, RES)
