@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port on one GPU: train the NeRF field, then
-imagine-and-score with it.
+"""Drive the PyTorch/CUDA port on one GPU: train the NeRF field, imagine and
+score with it, run the grid scorer on it, and run the attention bench.
 
     python3 chip_smoke.py            # needs one card
     python3 chip_smoke.py --profile  # also print torch.profiler breakdowns of
@@ -12,8 +12,14 @@ Phases (any failure raises; the exit code is then nonzero):
   2 kernels     each kernel against its plain PyTorch version on the card at
                 its path's shapes, timed (CUDA events, median), with its
                 roofline bound and a one-call PyTorch yardstick where one
-                exists: K1-K4 at the main path's, K5-K8 at one training
-                batch's (8192 rays, 32 coarse + 64 drawn samples, seeded field)
+                exists: K1-K4 at the main path's, K9 and the attention
+                bench's variants (X1-X4) at the scoring shape (B 32, H 16,
+                T 577, D 64, W 1024; X3's out-projection GEMM also alone,
+                element by element), K5-K8 at one training batch's (8192
+                rays, 32 coarse + 64 drawn samples, seeded field)
+  A bench       experiments/bench_attention.main() at the full shape with
+                few reps: its table, every wrapper's launch count, both
+                maxrel cross-checks under 2e-2
   T training    the port's selftest (cli/selftest.py): the flagship field on
                 the synth scene, 336^2, 36 views, 8192 rays, 32 + 32 samples,
                 depth supervision, 3000 steps; steps/s, final loss, and the
@@ -31,6 +37,15 @@ Phases (any failure raises; the exit code is then nonzero):
   4 main vs plain  one 32-pose clip group through the kernels and through
                 their plain versions: renders, image and text embeddings and
                 logits held; the score ratio and argmax reported
+  5 grid scorer    scoring.optimise_pose_grid on the trained field
+                through CombinedRenderer and ClipScorer: 512 poses
+                ([32, 16, 1, 1, 1, 1]) without and with save_renders (512
+                cb_render PNGs + best_render.png under build/chip_smoke/):
+                raw scores bit-identical between the two and equal to
+                make_imagine_and_score's, launch counts as the group count
+                predicts, one saved PNG decoded against its render; the
+                saving run again with D2R_WRITER_THREADS=2; 256 poses under
+                D2R_ATTN_FUSED_LN=0 (K3 on the path)
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
 
@@ -39,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -106,12 +122,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
-    from dream2real_tpu_torch import build
+    from dream2real_tpu_torch import build, scoring
     from dream2real_tpu_torch.cli.selftest import SELFTEST_AABB, run_selftest
     from dream2real_tpu_torch.clip import model as cm
-    from dream2real_tpu_torch.clip.scorer import build_captions
+    from dream2real_tpu_torch.clip.scorer import ClipScorer, build_captions
     from dream2real_tpu_torch.clip.tokenizer import hash_tokenize
     from dream2real_tpu_torch.data import synth
+    from dream2real_tpu_torch.experiments import bench_attention as ba
     from dream2real_tpu_torch.nerf import combined, march_kernel as mk, train_kernel as tk
     from dream2real_tpu_torch.nerf.model import NGPConfig, init_ngp_params
     from dream2real_tpu_torch.nerf.render import RenderSettings, render_image
@@ -121,6 +138,7 @@ def main() -> int:
     from dream2real_tpu_torch.parallel.imagine import make_imagine_and_score
     from dream2real_tpu_torch.sampling import sample_poses_grid
     from dream2real_tpu_torch.smoothing import spatially_smooth_heatmap
+    from dream2real_tpu_torch.utils.png import read_png
 
     profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda")
@@ -282,6 +300,130 @@ def main() -> int:
             2.0 * Bt * Ht * Dt * Tt * (Tt + 1), 4 * Bt * Ht * Tt * Dt * 2,
             time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20),
         )
+
+        # K9 and the attention bench's variants (X1-X4) at the scoring shape.
+        # Attention outputs: atol 0.02 / rtol 0.05 (the reference's attention
+        # tolerance). The matmul-only probe has no softmax to bound its sums
+        # and X3 writes the residual stream: both are held relative to the
+        # largest output, 2e-2 (the bench's own maxrel form).
+        def held(tag, got, ref, maxrel=False):
+            got, ref = got.float(), ref.float()
+            err = float((got - ref).abs().max())
+            if maxrel:
+                if err > 2e-2 * float(ref.abs().max()):
+                    raise AssertionError(f"{tag}: kernel vs plain {err} > 2e-2 x max |plain| "
+                                         f"{float(ref.abs().max())}")
+            elif not torch.allclose(got, ref, atol=0.02, rtol=0.05):
+                raise AssertionError(f"{tag}: kernel vs plain outside atol 0.02 / rtol 0.05, "
+                                     f"max {err}")
+            return err
+
+        ATT_SRC = "dream2real_tpu_torch/csrc/attention.cu"
+        XREF = "experiments/bench_attention.py"
+        q9, k9, v9 = (torch.randn(B, H, T, hd, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(3))
+        head_bytes = 4 * B * H * T * hd * 2
+        Tp = T + (-T % 8)  # X1 attends over the keys padded to a multiple of 8
+        x1_flops = 4.0 * B * H * T * Tp * hd
+        record(
+            "attention_bidirectional (K9)", ATT_SRC, "dream2real_tpu/ops/attention.py:123",
+            held("K9", att.mha(q9, k9, v9), att.mha_plain(q9, k9, v9)),
+            time_ms(lambda: att.mha(q9, k9, v9), 10),
+            time_ms(lambda: att.mha_plain(q9, k9, v9), 3),
+            attn_flops, head_bytes,
+            time_ms(lambda: F.scaled_dot_product_attention(q9, k9, v9), 10),
+        )
+        if torch.equal(ba.mha_v1_unrolled(q9, k9, v9), att.mha(q9, k9, v9)):
+            raise AssertionError("X1: the 7 unmasked zero keys left no trace in the result")
+        x1_padded = ba._pad8(q9, k9, v9)[:3]
+        for tag, fn, nomax in (("bench_v1_unrolled (X1, K9's launch)", ba.mha_v1_unrolled, False),
+                               ("bench_v2_nomax (X1)", ba.mha_v2_nomax, True)):
+            record(
+                tag, ATT_SRC, f"{XREF}:103",
+                held(tag, fn(q9, k9, v9), ba.mha_x1_plain(q9, k9, v9, nomax=nomax)),
+                time_ms(lambda: fn(q9, k9, v9), 10),
+                time_ms(lambda: ba.mha_x1_plain(q9, k9, v9, nomax=nomax), 3),
+                # One library call on the padded inputs computes the same
+                # function (v2 too, unless a logit overflows): timed only.
+                x1_flops, head_bytes,
+                time_ms(lambda: F.scaled_dot_product_attention(*x1_padded), 10),
+            )
+        for pname in ba.PROBES:
+            pfn = ba.probe(pname)
+            products = pname == "matmul_only"
+            record(
+                f"bench_probe_{pname} (X1)", ATT_SRC, f"{XREF}:103",
+                held(f"probe {pname}", pfn(q9, k9, v9), ba.probe_plain(pname, q9, k9, v9),
+                     maxrel=products),
+                time_ms(lambda: pfn(q9, k9, v9), 10),
+                time_ms(lambda: ba.probe_plain(pname, q9, k9, v9), 3),
+                # The products run on the tensor cores; the fabricated probes'
+                # only operations are T x Tp exponentials a head in f32, which
+                # no rate of this table prices above their bytes (q in, out).
+                x1_flops if products else 0.0, head_bytes if products else head_bytes // 2, None,
+            )
+        del q9, k9, v9, x1_padded
+        for kern in ("v8", "v9"):
+            record(
+                f"bench_projlayout_{kern} (X2)", ATT_SRC, f"{XREF}:243",
+                held(f"X2 {kern}", ba.mha_v8_projlayout(qkv, H, kern),
+                     att.mha_qkv_plain(qkv, H, ba.V8_KERNELS[kern])),
+                time_ms(lambda: ba.mha_v8_projlayout(qkv, H, kern), 10),
+                time_ms(lambda: att.mha_qkv_plain(qkv, H, ba.V8_KERNELS[kern]), 3),
+                attn_flops, B * T * 4 * W * 2,
+                time_ms(lambda: F.scaled_dot_product_attention(q3, k3, v3), 10),
+            )
+        wo = (torch.randn(W, W, generator=gen, device=dev) * W**-0.5).to(torch.bfloat16)
+        bo = torch.randn(W, generator=gen, device=dev) * 0.02
+        k2_flops = 2.0 * B * T * W * 3 * W + attn_flops
+        k2_bytes = 2 * B * T * W * 2 + W * 3 * W * 2 + 5 * W * 4
+        record(
+            "bench_block_fused (X4)", ATT_SRC, f"{XREF}:358",
+            held("X4", ba.block_fused(x, wqkv, bqkv, g, beta, H),
+                 att.mha_ln_qkv_plain(x, wqkv, bqkv, g, beta, H, False)),
+            time_ms(lambda: ba.block_fused(x, wqkv, bqkv, g, beta, H), 10),
+            time_ms(lambda: att.mha_ln_qkv_plain(x, wqkv, bqkv, g, beta, H, False), 3),
+            k2_flops, k2_bytes, time_ms(lib_k2, 10),
+        )
+
+        def lib_x3():
+            return x + torch.addmm(bo.to(torch.bfloat16), lib_k2().transpose(1, 2).reshape(
+                B * T, W), wo).view(B, T, W)
+
+        record(
+            "bench_block_fused_o (X3)", ATT_SRC, f"{XREF}:334",
+            held("X3", ba.block_fused_o(x, wqkv, bqkv, g, beta, wo, bo, H),
+                 ba.block_fused_o_plain(x, wqkv, bqkv, g, beta, wo, bo, H), maxrel=True),
+            time_ms(lambda: ba.block_fused_o(x, wqkv, bqkv, g, beta, wo, bo, H), 10),
+            time_ms(lambda: ba.block_fused_o_plain(x, wqkv, bqkv, g, beta, wo, bo, H), 3),
+            k2_flops + 2.0 * B * T * W * W, k2_bytes + W * W * 2 + W * 4, time_ms(lib_x3, 10),
+        )
+        # X3's out-projection GEMM alone, on the attention output the path
+        # gives it. The whole block above is held relative to the residual
+        # stream, which is larger than the product this GEMM adds, so the GEMM
+        # is held here element by element: against the plain version within
+        # one bf16 step of the result (2^-7 |plain| + 2e-3), and with a zero
+        # residual, where the product is all of the result, within one bf16
+        # step + 5e-4.
+        a_x3 = att.mha_ln_qkv(x, wqkv, bqkv, g, beta, H, maxsub=False)
+        gemm_errs = []
+        for tag, resid, atol in (("residual", x, 2e-3), ("zero residual", torch.zeros_like(x), 5e-4)):
+            got = att.proj_residual(a_x3, wo, bo, resid).float()
+            ref = att.proj_residual_plain(a_x3, wo, bo, resid).float()
+            over = float(((got - ref).abs() - 2.0**-7 * ref.abs()).max())
+            gemm_errs.append(float((got - ref).abs().max()))
+            log(f"  X3's GEMM, {tag}: max |kernel - plain| {gemm_errs[-1]:.4e} at max |plain| "
+                f"{float(ref.abs().max()):.3f}; worst excess over one bf16 step {over:.3e} "
+                f"(allowed {atol})")
+            if not over <= atol:
+                raise AssertionError(f"X3's GEMM ({tag}): kernel vs plain exceeds 2^-7 |plain| "
+                                     f"by {over} > {atol}")
+        del got, ref
+        log(f"  X3's out-projection GEMM alone: "
+            f"{time_ms(lambda: att.proj_residual(a_x3, wo, bo, x), 10):.4f} ms; torch.matmul of "
+            f"the same product {time_ms(lambda: torch.matmul(a_x3, wo), 10):.4f} ms "
+            f"(bound {bound_ms(2.0 * B * T * W * W, 3 * B * T * W * 2 + W * W * 2)[0]:.4f} ms)")
+        del a_x3
         del x, qkv, q3, k3, v3
 
         # K5-K8: one training batch of the selftest configuration on the
@@ -381,6 +523,55 @@ def main() -> int:
             2.0 * DENSITY_MACS * R * nc, R * (6 + 2 * nc) * 4 + tw.numel() * 2, None,
         )
         del C, A, D, fwd_plain, g_slim, g_full, g_plain
+
+    # ------------------------------------------------------ A attention bench
+    phase("A attention bench (experiments/bench_attention.main, full shape, 3 reps)")
+    reps_a = 3
+    x_counters = {
+        "attention_bidirectional (K9)": lambda: att.mha.launches,
+        "bench_v1_unrolled (X1, K9's launch)": lambda: ba.mha_v1_unrolled.launches,
+        "bench_v2_nomax (X1)": lambda: ba.mha_v2_nomax.launches,
+        "bench_v3_pipelined (X1)": lambda: ba.mha_v3_pipelined.launches,
+        **{f"bench_probe_{n} (X1)": (lambda n=n: ba.probe.launches[n]) for n in ba.PROBES},
+        **{f"bench_projlayout_{k} (X2)": (lambda k=k: ba.mha_v8_projlayout.launches[k])
+           for k in ba.V8_KERNELS},
+        "bench_block_fused (X4)": lambda: ba.block_fused.launches,
+        "bench_block_fused_o (X3)": lambda: ba.block_fused_o.launches,
+        "out-projection GEMM (inside X3)": lambda: att.proj_residual.launches,
+    }
+    att.mha.launches = att.proj_residual.launches = 0
+    ba.mha_v1_unrolled.launches = ba.mha_v2_nomax.launches = ba.mha_v3_pipelined.launches = 0
+    ba.block_fused.launches = ba.block_fused_o.launches = 0
+    for counts in (ba.probe.launches, ba.mha_v8_projlayout.launches):
+        for key in counts:
+            counts[key] = 0
+    bench = ba.main([str(reps_a)], out=lambda m: log(f"  {m}"))
+    bench_launches = {k: read() for k, read in x_counters.items()}
+    # A timed row is one warm call and reps_a timed ones; the cross-checks
+    # and the composed layers add the rest.
+    row = reps_a + 1
+    expected = {
+        "attention_bidirectional (K9)": row + 1,
+        "bench_v1_unrolled (X1, K9's launch)": row + 1, "bench_v2_nomax (X1)": row + 1,
+        "bench_v3_pipelined (X1)": row + 1,
+        **{f"bench_probe_{n} (X1)": row for n in ba.PROBES},
+        "bench_projlayout_v8 (X2)": row, "bench_projlayout_v10 (X2)": row,
+        "bench_projlayout_v11 (X2)": row,
+        "bench_projlayout_v9 (X2)": row + 3 * row + 2,  # its row, 3 baseline rows, 2 checks
+        "bench_block_fused (X4)": 2 * row,
+        "bench_block_fused_o (X3)": 2 * row + 2, "out-projection GEMM (inside X3)": 2 * row + 2,
+    }
+    log(f"  launches: {bench_launches}")
+    if bench_launches != expected:
+        raise AssertionError(f"attention bench: launches {bench_launches} != {expected}")
+    if len(bench["rows"]) != 18 or not all(v > 0 and np.isfinite(v) for v in bench["rows"].values()):
+        raise AssertionError(f"attention bench: rows {bench['rows']}")
+    for key in ("v13", "full-block"):
+        if not bench["maxrel"][key] < 2e-2:
+            raise AssertionError(f"attention bench: {key} maxrel {bench['maxrel'][key]} >= 2e-2")
+    for k in kernels:
+        if k["name"] in bench_launches:
+            k["launches"] = bench_launches[k["name"]]
 
     # ------------------------------------------------------------- T training
     phase("T training (the port's selftest: 336^2, 36 views, 8192 rays, 32 + 32)")
@@ -617,6 +808,127 @@ def main() -> int:
         raise AssertionError(f"main vs plain: logits differ by {d_logit}")
     if not (bool(torch.isfinite(p_scores).all()) and bool(torch.isfinite(k_scores).all())):
         raise AssertionError("main vs plain: scores are not finite")
+
+    # ----------------------------------------------------- 5 grid scorer
+    phase("5 grid scorer (optimise_pose_grid, CombinedRenderer, ClipScorer)")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    renderer = combined.CombinedRenderer(
+        field, field, settings=settings, res=res, intrinsics=K, row_chunk=56, obj_aabb=obj_aabb,
+        fg_crop=crop, out_render_path=os.path.join(out_dir, "cb_render"),
+    )
+    scorer = ClipScorer(clip, batch_size=clip_batch)
+
+    class Obj:
+        pose = T_WO.cpu().numpy()
+
+    class SceneModel:
+        scene_centre = scene.centre
+        opt_cam_poses = [cams[0].astype(np.float32)]
+
+    class TaskModel:
+        """A duck-typed task model, as the tests use."""
+        scene_model = SceneModel
+        goal_caption, norm_captions = captions[0], captions[1:]
+        movable_obj = Obj
+        # Nonzero outside the movable object: render_background pushes its
+        # pixels of the scan's depth to 100, the depth phase 3 built by hand.
+        movable_masks = (inst != 1)[None]
+
+        @staticmethod
+        def free_visual_models():
+            pass
+
+    res5 = [32, 16, 1, 1, 1, 1]
+    grid5 = sample_poses_grid(scene.centre, res5, scene_type=3).reshape(-1, 4, 4)
+    want5 = torch.cat([score_fn(*args3, torch.as_tensor(grid5[s : s + dispatch], device=dev))
+                       for s in range(0, len(grid5), dispatch)]).cpu().numpy()
+    groups5 = len(grid5) // clip_batch
+
+    def drive(save, sample_res=res5):
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        best_, batch_, scores_ = scoring.optimise_pose_grid(
+            renderer, gt_depth[None], [0], TaskModel, out_dir, sample_res=sample_res,
+            scene_type=3, clip_scorer=scorer, tokenizer=hash_tokenize, save_renders=save,
+        )
+        torch.cuda.synchronize()
+        return (best_, batch_, scores_, dict(scoring.LAST_RUN_INFO),
+                {k: fn.launches for k, fn in wrappers.items()}, time.perf_counter() - t0_)
+
+    runs5 = {}
+    for save in (False, True):
+        best5, batch5, scores5, info5, launches5, wall5 = runs5[save] = drive(save)
+        t_fused = info5["stage_s"]["fused_score"]
+        log(f"  save_renders={save}: {len(grid5)} poses, fused_score {t_fused:.2f} s = "
+            f"{len(grid5) / t_fused:.1f} poses/s (dispatch_s {info5['dispatch_s']}, drain_s "
+            f"{info5['drain_s']}, peak pending {info5['peak_pending_mb']} MB, {info5['n_slabs']} "
+            f"slabs of {info5['slab']}); the whole call {wall5:.2f} s, stages {info5['stage_s']}; "
+            f"launches {launches5} ({name}; {smi})")
+        if info5["n_slabs"] != 2 or info5["mesh_devices"] != 1 or info5["n_poses"] != len(grid5):
+            raise AssertionError(f"grid scorer: LAST_RUN_INFO {info5}")
+        # One K1 launch a clip group and one for best_render.png; K2 (and
+        # K3 beneath it) in 23 blocks a group; K4 once a text layer.
+        want_launches = {"march (K1)": groups5 + 1, "ln_qkv_attention (K2)": 23 * groups5,
+                         "attention_qkv (K3)": 23 * groups5,
+                         "attention_causal (K4)": clip_cfg.text_layers}
+        if launches5 != want_launches:
+            raise AssertionError(f"grid scorer: launches {launches5} != {want_launches}")
+        if not np.array_equal(batch5.reshape(-1, 4, 4), grid5):
+            raise AssertionError("grid scorer: pose_batch is not the sampled grid")
+        if not np.array_equal(info5["raw_scores"], want5):
+            raise AssertionError(
+                "grid scorer: raw scores differ from make_imagine_and_score's, max "
+                f"{np.abs(info5['raw_scores'] - want5).max()}")
+        sm5 = spatially_smooth_heatmap(torch.as_tensor(want5, device=dev), res5).cpu().numpy()
+        if not (np.array_equal(scores5, sm5) and info5["best_idx"] == int(sm5.argmax())
+                and np.array_equal(best5, grid5[int(sm5.argmax())])):
+            raise AssertionError("grid scorer: smoothed scores or the best pose are off")
+    if not np.array_equal(runs5[False][3]["raw_scores"], runs5[True][3]["raw_scores"]):
+        raise AssertionError("grid scorer: scores differ with and without save_renders")
+    log("  raw scores bit-identical with and without save_renders, and equal to "
+        "make_imagine_and_score's on the same poses")
+    files = sorted(os.listdir(renderer.out_render_path))
+    if files != [f"cb_rgb_{i:04d}.png" for i in range(len(grid5))]:
+        raise AssertionError(f"grid scorer: cb_render holds {len(files)} files")
+    pick = 300
+    again = renderer.render(grid5[pick : pick + 1], cams[:1], [0], depths_gt=gt_depth[None],
+                            movable_masks=TaskModel.movable_masks, T_WO_1=Obj.pose)[0]
+    if not np.array_equal(read_png(os.path.join(renderer.out_render_path, files[pick])), again):
+        raise AssertionError("grid scorer: a saved PNG does not decode to its render")
+    best_png = read_png(os.path.join(out_dir, "best_render.png"))
+    if not np.array_equal(best_png, read_png(os.path.join(
+            renderer.out_render_path, files[runs5[True][3]["best_idx"]]))):
+        raise AssertionError("grid scorer: best_render.png is not the winning pose's render")
+    log(f"  {len(files)} cb_render PNGs and best_render.png written; cb_rgb_{pick:04d}.png "
+        f"decodes to its render")
+    # The same saving run with two writer threads: one slab each to encode.
+    os.environ["D2R_WRITER_THREADS"] = "2"
+    try:
+        *_, info_w2, _, wall_w2 = drive(True)
+    finally:
+        del os.environ["D2R_WRITER_THREADS"]
+    t_w1, t_w2 = runs5[True][3]["stage_s"]["fused_score"], info_w2["stage_s"]["fused_score"]
+    log(f"  save_renders=True, D2R_WRITER_THREADS=2: fused_score {t_w2:.2f} s = "
+        f"{len(grid5) / t_w2:.1f} poses/s (one thread {t_w1:.2f} s; dispatch_s "
+        f"{info_w2['dispatch_s']}, drain_s {info_w2['drain_s']}); the whole call {wall_w2:.2f} s")
+    if not np.array_equal(info_w2["raw_scores"], want5):
+        raise AssertionError("grid scorer: scores differ with two writer threads")
+    if sorted(os.listdir(renderer.out_render_path)) != files:
+        raise AssertionError("grid scorer: two writer threads left other files")
+    os.environ["D2R_ATTN_FUSED_LN"] = "0"
+    try:
+        *_, info0, launches0, _ = drive(False, [16, 16, 1, 1, 1, 1])
+    finally:
+        os.environ["D2R_ATTN_FUSED_LN"] = "1"
+    log(f"  D2R_ATTN_FUSED_LN=0, 256 poses in one slab: launches {launches0}")
+    if (info0["n_slabs"] != 1 or launches0["ln_qkv_attention (K2)"] != 0
+            or launches0["attention_qkv (K3)"] != 23 * (256 // clip_batch)):
+        raise AssertionError(f"grid scorer, split attention path: {info0}, {launches0}")
+    shutil.rmtree(out_dir, ignore_errors=True)
 
     # ------------------------------------------------------------ results
     log(smi)

@@ -1,6 +1,7 @@
 """Weight bridge between the reference's parameter pytrees (as numpy arrays)
 and the port's modules, so both packages run the same parameters: JAX
-pytrees into the port, and a port field back out (``field_to_numpy``).
+pytrees into the port, and a port field or CLIP model back out
+(``field_to_numpy``, ``clip_to_numpy``).
 
 NGP keys: trunk_w0..4, trunk_b0..4, color_w0..2 (f32, (in, out)).
 CLIP keys: v_*, t_*, v_blk{i} / t_blk{i} with ln1_g/b, ln2_g/b and
@@ -65,6 +66,23 @@ def clip_from_jax(params: Mapping, cfg: CLIPConfig, device=None) -> CLIPModel:
             node = params[name]
         _copy(p, node, name)
     return model
+
+
+def clip_to_numpy(model: CLIPModel) -> dict:
+    """A port CLIPModel -> the reference's parameter tree as f32 numpy
+    arrays (``jax.tree_util.tree_map(jnp.asarray, ...)`` to use it there).
+    The bf16 matmul weights widen exactly, so ``clip_from_jax`` of the
+    result gives the same model bit for bit."""
+    out: dict = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        node = out
+        if parts[0] in ("v_blk", "t_blk"):
+            node = out.setdefault(f"{parts[0]}{parts[1]}", {})
+            for part in parts[2:-1]:
+                node = node.setdefault(part, {})
+        node[parts[-1]] = p.detach().to(torch.float32).cpu().numpy()
+    return out
 
 
 def field_from_snapshot(path: str, device=None) -> tuple[NGPField, RenderSettings | None]:

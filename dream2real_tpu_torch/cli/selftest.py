@@ -5,10 +5,18 @@ steps/s, render latency, PSNR and the median depth error.
     python -m dream2real_tpu_torch.cli.selftest            # 336^2, 36 views, 3000 steps
     python -m dream2real_tpu_torch.cli.selftest --small    # 64^2, 1200 steps
     python -m dream2real_tpu_torch.cli.selftest --device cpu --small --steps 40
+    python -m dream2real_tpu_torch.cli.selftest --clip-load-dryrun
 
 The pass bar is the reference's: PSNR > 22 dB (15 with --small) and a median
 |depth error| < 5 cm, on view 5 of the training orbit. A held-out view, half
 an orbit step past view 5, is rendered and reported beside it.
+
+--clip-load-dryrun instead exercises the CLIP checkpoint load path: it
+writes a random-weight checkpoint with the tensor names, shapes and file
+layout of openai/clip-vit-large-patch14-336 (needs ``transformers`` and
+``safetensors``), loads it through ``load_clip`` and scores one 336^2 image
+on the device. After it, the only untested step of real scoring is the
+weights' values.
 """
 
 from __future__ import annotations
@@ -117,6 +125,56 @@ def run_selftest(views: int = 36, steps: int = 3000, small: bool = False, device
     }
 
 
+def clip_load_dryrun(ckpt_dir: str | None = None, device=None, hf_config=None) -> int:
+    """Write (unless ``ckpt_dir`` holds one) and load a full-layout CLIP
+    checkpoint, then run one scoring forward. ``hf_config`` shrinks the
+    model for CPU tests."""
+    import os
+    import shutil
+    import tempfile
+
+    from dream2real_tpu_torch.clip.convert import load_clip, write_random_hf_checkpoint
+    from dream2real_tpu_torch.clip.model import (
+        encode_image, encode_text, logits_per_image, preprocess_images,
+    )
+
+    dev = resolve_device(device)
+    cleanup = ckpt_dir is None
+    if ckpt_dir is None:
+        ckpt_dir = tempfile.mkdtemp(prefix="d2r_clip_dryrun_")
+    try:
+        if not os.path.isfile(os.path.join(ckpt_dir, "model.safetensors")):
+            t0 = time.perf_counter()
+            write_random_hf_checkpoint(ckpt_dir, hf_config)
+            print(f"wrote full-layout checkpoint in {time.perf_counter() - t0:.1f}s ({ckpt_dir})",
+                  flush=True)
+        t0 = time.perf_counter()
+        model, cfg = load_clip(ckpt_dir, device=dev)
+        print(f"load_clip: {time.perf_counter() - t0:.1f}s; vision {cfg.vision_layers}L/"
+              f"{cfg.vision_width}w, text {cfg.text_layers}L/{cfg.text_width}w, image "
+              f"{cfg.image_size}px", flush=True)
+        img = torch.zeros(1, cfg.image_size, cfg.image_size, 3, dtype=torch.uint8, device=dev)
+        ids = np.zeros((2, cfg.context_length), np.int64)
+        ids[:, 0] = cfg.eot_id - 1
+        ids[0, 1:3] = [320, cfg.eot_id]
+        ids[1, 1:4] = [320, 525, cfg.eot_id]
+        ids = np.minimum(ids, cfg.vocab_size - 1)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg = logits_per_image(
+                model, encode_image(model, preprocess_images(img, cfg)),
+                encode_text(model, torch.as_tensor(ids, device=dev)),
+            ).cpu().numpy()
+        print(f"{cfg.image_size}px scoring forward: {time.perf_counter() - t0:.1f}s; "
+              f"logits {lg.ravel()}", flush=True)
+        ok = lg.shape == (1, 2) and bool(np.isfinite(lg).all())
+        print("CLIP LOAD DRYRUN", "PASS" if ok else "FAIL", flush=True)
+        return 0 if ok else 1
+    finally:
+        if cleanup:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true", help="64x64, 1200 steps")
@@ -126,7 +184,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", type=str, default=None, help="default: cuda")
     ap.add_argument("--seed", type=int, default=0, help="the training run's seed")
     ap.add_argument("--out", type=str, default=None, help="directory for render.png")
+    ap.add_argument("--clip-load-dryrun", action="store_true",
+                    help="full-layout ViT-L/14-336 checkpoint load + one 336px forward")
+    ap.add_argument("--clip-ckpt-dir", type=str, default=None)
     args = ap.parse_args(argv)
+    if args.clip_load_dryrun:
+        return clip_load_dryrun(args.clip_ckpt_dir, args.device)
     steps = args.steps or (1200 if args.small else 3000)
     res = run_selftest(args.views, steps, args.small, args.device, seed=args.seed)
     if args.out:

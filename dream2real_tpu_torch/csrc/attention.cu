@@ -1,13 +1,26 @@
 // CLIP attention kernels: K2 (LN1 + qkv projection + attention), K3
-// (attention on a projection-layout qkv) and K4 (causal head-split
-// attention of the text tower).
+// (attention on a projection-layout qkv), K4 (causal head-split attention of
+// the text tower), K9 (bidirectional head-split attention) and the variants
+// of the attention bench (X1-X4).
 //
 // Replaces, in dream2real_tpu/ops/attention.py:
-//   K2 mha_ln_qkv        (Pallas body _attn_kernel4)
-//   K3 mha_qkv           (Pallas body _attn_kernel3)
-//   K4 mha(causal=True)  (Pallas body _attn_kernel)
+//   K2 mha_ln_qkv         (Pallas body _attn_kernel4)
+//   K3 mha_qkv            (Pallas body _attn_kernel3)
+//   K4 mha(causal=True)   (Pallas body _attn_kernel)
+//   K9 mha(causal=False)  (Pallas body _attn_kernel2): attn_kernel in mode
+//      maxsub through head-split strides, q scaled by D^-0.5 as it is loaded
+// and, in experiments/bench_attention.py:
+//   X1 _call: _kernel_unrolled / _kernel_pipelined are K9's function (mode
+//      maxsub), _kernel_nomax is mode nomax, and the floor probes
+//      _kernel_exponly / _kernel_softmaxonly / _kernel_matmulonly are the
+//      probe modes below
+//   X2 _mha_v8_projlayout: K3's launch in modes maxsub (v8, v10) and clamp
+//      (v9, v11)
+//   X4 _block_fused: K2's kernels with the attention in mode clamp
+//   X3 _block_fused_o: X4, then gemm_bf16 with the bias + residual epilogue
+//      (the out-projection the TPU body holds)
 //
-// K2 on Hopper is two hand-written parts: ln_qkv_gemm below (LN1 folded into
+// K2 on Hopper is two hand-written parts: gemm_bf16<LN> below (LN1 folded into
 // the A-tile load of a tiled bf16 GEMM, row statistics from ln_stats), which
 // writes the (B, T, 3W) bf16 qkv, then the K3 attention kernel on it. The
 // TPU kernel kept Wqkv (6 MB) resident in VMEM; a Hopper block has 227 KB,
@@ -34,6 +47,20 @@
 //             p = bf16(exp(s - m) / l); out = o. Masked keys (padding,
 //             causal) get weight 0, the same as the reference's -1e9 bias
 //             or -0.7*f32max mask.
+//   3 nomax   p = bf16(exp(s)); l += p; out = o / l. No max and no clamp, as
+//             the bench's _kernel_nomax: a logit above 88 overflows.
+// Floor probes of the bench (their outputs are fabricated; their use is
+// their time). Each keeps the K and V tile loads, as the TPU probes keep
+// their DMA, and leaves out what its TPU body leaves out:
+//   4 exp only      no products, no reductions: every score of a row is
+//                   f32(q[row, 0]) written to the score buffer, then the exp
+//                   pass p = bf16(exp(s)); out = p[:, :64].
+//   5 softmax only  no products: the same fabricated scores through the max
+//                   pass, p = bf16(exp(s - m)), l += p; out = p[:, :64] / l.
+//   6 matmul only   QK^T and PV with the softmax replaced by a cast:
+//                   p = bf16(s); out = o.
+// The probes visit key tile 0 last, so that the weight buffer then holds
+// the first 64 columns of p.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,21 +100,26 @@ __global__ void ln_stats(const bf16* __restrict__ x, int M, int K, float eps,
   }
 }
 
-// ------------------------------------------------------- LN1-fused qkv GEMM
+// ------------------------------------- bf16 GEMM (LN1 prologue / residual)
 
 constexpr int kGBM = 128, kGBN = 128, kGBK = 32;
 constexpr int kGThreads = 256;  // 8 warps: 4 along M x 2 along N, 32 x 64 each
 constexpr int kGALd = kGBK + 8;
 constexpr int kGBLd = kGBN + 8;
 
-// out (M x N) = bf16( bf16(LN(x)) @ W + bias ), LN(x) = ((x - mu) * rstd) * g + beta
-// rounded to bf16 as the A tile is loaded. Needs K % 32 == 0, N % 128 == 0.
+// kLN (K2's qkv projection): out (M x N) = bf16( bf16(LN(x)) @ W + bias ),
+// LN(x) = ((x - mu) * rstd) * g + beta rounded to bf16 as the A tile is
+// loaded. Without kLN the A tile is x as it is.
+// kResid (X3's out-projection): out = bf16( f32(resid) + (x @ W + bias) ),
+// the product and the bias summed in f32 first, one rounding at the end.
+// Needs K % 32 == 0, N % 128 == 0.
+template <bool kLN, bool kResid>
 __global__ void __launch_bounds__(kGThreads)
-    ln_qkv_gemm(const bf16* __restrict__ x, const float* __restrict__ mu,
-                const float* __restrict__ rstd, const float* __restrict__ g,
-                const float* __restrict__ beta, const bf16* __restrict__ W,
-                const float* __restrict__ bias, int M, int K, int N,
-                bf16* __restrict__ out) {
+    gemm_bf16(const bf16* __restrict__ x, const float* __restrict__ mu,
+              const float* __restrict__ rstd, const float* __restrict__ g,
+              const float* __restrict__ beta, const bf16* __restrict__ W,
+              const float* __restrict__ bias, const bf16* __restrict__ resid, int M, int K,
+              int N, bf16* __restrict__ out) {
   __shared__ __align__(128) bf16 sA[kGBM * kGALd];
   __shared__ __align__(128) bf16 sB[kGBK * kGBLd];
   __shared__ __align__(128) float scratch[8 * 256];
@@ -111,11 +143,13 @@ __global__ void __launch_bounds__(kGThreads)
       if (m < M) {
         *reinterpret_cast<uint4*>(v) =
             *reinterpret_cast<const uint4*>(x + size_t(m) * K + k0 + c);
-        const float mu_m = mu[m], r_m = rstd[m];
+        if (kLN) {
+          const float mu_m = mu[m], r_m = rstd[m];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float xv = __bfloat162float(v[e]);
-          v[e] = __float2bfloat16_rn((xv - mu_m) * r_m * g[k0 + c + e] + beta[k0 + c + e]);
+          for (int e = 0; e < 8; ++e) {
+            const float xv = __bfloat162float(v[e]);
+            v[e] = __float2bfloat16_rn((xv - mu_m) * r_m * g[k0 + c + e] + beta[k0 + c + e]);
+          }
         }
       } else {
 #pragma unroll
@@ -157,7 +191,11 @@ __global__ void __launch_bounds__(kGThreads)
       for (int e = lane; e < 256; e += 32) {
         const int m = m0 + wm * 32 + i * 16 + (e >> 4);
         const int n = n0 + wn * 64 + j * 16 + (e & 15);
-        if (m < M) out[size_t(m) * N + n] = __float2bfloat16_rn(scr[e] + bias[n]);
+        if (m < M) {
+          const float y = scr[e] + bias[n];
+          out[size_t(m) * N + n] = __float2bfloat16_rn(
+              kResid ? __bfloat162float(resid[size_t(m) * N + n]) + y : y);
+        }
       }
       __syncwarp();
     }
@@ -229,11 +267,28 @@ __device__ __forceinline__ void scores(const bf16* sQ, const bf16* sK, float* sS
   __syncwarp();
 }
 
+// The bench's floor probes write these scores in place of QK^T: every key
+// column of a query row gets f32(q[row, 0]). Lane L writes columns L and
+// L + 32 of all 16 rows, and reads back a row segment another lane wrote.
+__device__ __forceinline__ void fabricated_scores(const bf16* sQ, float* sS, int warp,
+                                                  int lane) {
+  for (int e = lane; e < 16 * kKT; e += 32) {
+    const int rr = e / kKT, cc = e % kKT;
+    sS[rr * kSLd + cc] = __bfloat162float(sQ[(warp * 16 + rr) * kLd]);
+  }
+  __syncwarp();
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(kAThreads)
     attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ out, int T, Strides st,
                 float scale, int causal) {
+  constexpr bool kProducts = MODE != 4 && MODE != 5;  // QK^T and PV
+  constexpr bool kRowMax = MODE == 1 || MODE == 2 || MODE == 5;
+  constexpr bool kRowSum = MODE == 0 || MODE == 1 || MODE == 3 || MODE == 5;  // l += p
+  constexpr bool kProbe = MODE >= 4;
+
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sK = reinterpret_cast<bf16*>(smem_raw + kQBytes);
@@ -254,16 +309,18 @@ __global__ void __launch_bounds__(kAThreads)
   if (causal) n_kt = min(n_kt, int(blockIdx.x) + 1);  // later keys are all masked
 
   float m = -INFINITY, l = 0.0f;
-  if (MODE != 0) {  // exact row max
+  if (kRowMax) {  // exact row max
     for (int kt = 0; kt < n_kt; ++kt) {
       __syncthreads();
       load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
       __syncthreads();
-      scores(sQ, sK, sS, warp);
+      if (kProducts) scores(sQ, sK, sS, warp);
+      else fabricated_scores(sQ, sS, warp, lane);
       for (int c = c0; c < c0 + 32; ++c) {
         const int key = kt * kKT + c;
         if (key < T && (!causal || key <= qrow)) m = fmaxf(m, sS[r * kSLd + c]);
       }
+      __syncwarp();
     }
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
   }
@@ -284,52 +341,64 @@ __global__ void __launch_bounds__(kAThreads)
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[kHd / 16];
 #pragma unroll
   for (int n = 0; n < kHd / 16; ++n) wmma::fill_fragment(oacc[n], 0.0f);
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int it = 0; it < n_kt; ++it) {
+    const int kt = kProbe ? (it + 1) % n_kt : it;  // the probes end on key tile 0
     __syncthreads();
     load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
     load_tile(sV, v + in_off, st.t, kt * kKT, T, 1.0f);
     __syncthreads();
-    scores(sQ, sK, sS, warp);
+    if (kProducts) scores(sQ, sK, sS, warp);
+    else fabricated_scores(sQ, sS, warp, lane);
     for (int c = c0; c < c0 + 32; ++c) {
       const int key = kt * kKT + c;
       const float s = sS[r * kSLd + c];
       float p = 0.0f;
       if (key < T && (!causal || key <= qrow)) {
         if (MODE == 0) {
-          p = __bfloat162float(__float2bfloat16_rn(expf(fminf(s, 70.0f) - 70.0f)));
-        } else if (MODE == 1) {
-          p = __bfloat162float(__float2bfloat16_rn(expf(s - m)));
+          p = expf(fminf(s, 70.0f) - 70.0f);
+        } else if (MODE == 1 || MODE == 5) {
+          p = expf(s - m);
+        } else if (MODE == 2) {
+          p = expf(s - m) / l;
+        } else if (MODE == 3 || MODE == 4) {
+          p = expf(s);
         } else {
-          p = __bfloat162float(__float2bfloat16_rn(expf(s - m) / l));
+          p = s;
         }
+        p = __bfloat162float(__float2bfloat16_rn(p));
       }
-      if (MODE != 2) l += p;
+      if (kRowSum) l += p;
       sP[r * kLd + c] = __float2bfloat16_rn(p);
     }
     __syncwarp();
+    if (kProducts) {
 #pragma unroll
-    for (int kk = 0; kk < kKT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sP + kk, kLd);
+      for (int kk = 0; kk < kKT; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, sP + kk, kLd);
 #pragma unroll
-      for (int n = 0; n < kHd / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, sV + kk * kLd + n * 16, kLd);
-        wmma::mma_sync(oacc[n], a, bv, oacc[n]);
+        for (int n = 0; n < kHd / 16; ++n) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+          wmma::load_matrix_sync(bv, sV + kk * kLd + n * 16, kLd);
+          wmma::mma_sync(oacc[n], a, bv, oacc[n]);
+        }
       }
     }
   }
-  if (MODE != 2) l += __shfl_xor_sync(0xffffffffu, l, 1);
+  if (kRowSum) l += __shfl_xor_sync(0xffffffffu, l, 1);
 
+  if (kProducts) {
 #pragma unroll
-  for (int n = 0; n < kHd / 16; ++n)
-    wmma::store_matrix_sync(sS + n * 16, oacc[n], kSLd, wmma::mem_row_major);
-  __syncwarp();
+    for (int n = 0; n < kHd / 16; ++n)
+      wmma::store_matrix_sync(sS + n * 16, oacc[n], kSLd, wmma::mem_row_major);
+    __syncwarp();
+  }
   if (qrow < T) {
     bf16* orow = out + b * st.ob + h * st.oh + long(qrow) * st.ot;
     for (int c = c0; c < c0 + 32; ++c) {
-      const float ov = sS[r * kSLd + c];
-      orow[c] = __float2bfloat16_rn(MODE == 2 ? ov : ov / l);
+      // The probes without products give the first 64 columns of p.
+      const float ov = kProducts ? sS[r * kSLd + c] : __bfloat162float(sP[r * kLd + c]);
+      orow[c] = __float2bfloat16_rn(kRowSum ? ov / l : ov);
     }
   }
 }
@@ -350,7 +419,8 @@ int launch_attn(const void* q, const void* k, const void* v, void* out, int B, i
 }  // namespace
 
 // Attention over heads of 64 addressed by element strides. mode 0 clamp,
-// 1 maxsub, 2 exact softmax (see the note at the top).
+// 1 maxsub, 2 exact softmax, 3 nomax, 4 / 5 / 6 the exp-only, softmax-only
+// and matmul-only probes (see the note at the top).
 extern "C" int d2r_attention(const void* q, const void* k, const void* v, void* out, int B,
                              int H, int T, long sb, long sh, long st, long osb, long osh,
                              long ost, float scale, int causal, int mode, void* stream) {
@@ -361,6 +431,10 @@ extern "C" int d2r_attention(const void* q, const void* k, const void* v, void* 
     case 0: return launch_attn<0>(q, k, v, out, B, H, T, s, scale, causal, cs);
     case 1: return launch_attn<1>(q, k, v, out, B, H, T, s, scale, causal, cs);
     case 2: return launch_attn<2>(q, k, v, out, B, H, T, s, scale, causal, cs);
+    case 3: return launch_attn<3>(q, k, v, out, B, H, T, s, scale, causal, cs);
+    case 4: return launch_attn<4>(q, k, v, out, B, H, T, s, scale, causal, cs);
+    case 5: return launch_attn<5>(q, k, v, out, B, H, T, s, scale, causal, cs);
+    case 6: return launch_attn<6>(q, k, v, out, B, H, T, s, scale, causal, cs);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -377,10 +451,26 @@ extern "C" int d2r_ln_qkv(const void* x, const void* g, const void* beta, const 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   dim3 grid(N / kGBN, (M + kGBM - 1) / kGBM);
-  ln_qkv_gemm<<<grid, kGThreads, 0, cs>>>(
+  gemm_bf16<true, false><<<grid, kGThreads, 0, cs>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(mu),
       static_cast<const float*>(rstd), static_cast<const float*>(g),
       static_cast<const float*>(beta), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), M, K, N, static_cast<bf16*>(qkv));
+      static_cast<const float*>(bias), nullptr, M, K, N, static_cast<bf16*>(qkv));
+  return int(cudaGetLastError());
+}
+
+// out (M x N) = bf16(f32(resid) + (a @ W + bias)) for a (M x K) bf16, W
+// (K x N) bf16, bias (N,) f32, resid (M x N) bf16: the out-projection, bias
+// and residual of the bench's v13 body. K % 32 == 0 and N % 128 == 0.
+extern "C" int d2r_gemm_bias_residual(const void* a, const void* w, const void* bias,
+                                      const void* resid, int M, int K, int N, void* out,
+                                      void* stream) {
+  if (M <= 0) return 0;
+  if (K % kGBK || N % kGBN) return int(cudaErrorInvalidValue);
+  dim3 grid(N / kGBN, (M + kGBM - 1) / kGBM);
+  gemm_bf16<false, true><<<grid, kGThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), nullptr, nullptr, nullptr, nullptr,
+      static_cast<const bf16*>(w), static_cast<const float*>(bias),
+      static_cast<const bf16*>(resid), M, K, N, static_cast<bf16*>(out));
   return int(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""Foreground/background compositing for the imagine loop (port of the
-functions of dream2real_tpu/nerf/combined.py on the imagine-and-score path).
+"""Foreground/background compositing for the imagine loop and the combined
+renderer (port of dream2real_tpu/nerf/combined.py).
 
 Per candidate pose: virtual-camera trick, fg march inside the object's
 projected crop window (K1, all poses of a group in one launch), per-pixel
@@ -11,17 +11,21 @@ gathered and scattered by index, with no host round trip.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
+import shutil
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from dream2real_tpu_torch.device import F32
+from dream2real_tpu_torch.device import F32, resolve_device
 from dream2real_tpu_torch.nerf.march_kernel import march_rays_fused, pack_params, supports
 from dream2real_tpu_torch.nerf.model import NGPField
-from dream2real_tpu_torch.nerf.render import RenderSettings, render_rays
-from dream2real_tpu_torch.ops.image import linear_to_srgb
+from dream2real_tpu_torch.nerf.render import RenderSettings, render_image, render_rays
+from dream2real_tpu_torch.ops import cameras
+from dream2real_tpu_torch.ops.image import linear_to_srgb, rectify_depth, rectify_mask
 from dream2real_tpu_torch.ops.se3 import convert_virtual_pose, pose_inverse
+from dream2real_tpu_torch.utils.png import write_png
 
 CLIP_RES = 336
 
@@ -185,3 +189,184 @@ def render_pose_cropped(
     pidx = torch.arange(P, device=frames.device)[:, None, None]
     frames[pidx, rows, cols] = img_crop
     return frames
+
+
+def render_pose_batch(
+    fg: NGPField,
+    settings: RenderSettings,
+    crop_settings: RenderSettings,
+    dirs_cam: torch.Tensor,
+    intrinsics,
+    obj_aabb,
+    crop: int,
+    row_chunk: int,
+    T_WO_1: torch.Tensor,
+    T_WC_1: torch.Tensor,
+    bg: BackgroundView,
+    bg_only_u8,
+    T_WO_2: torch.Tensor,
+    packed=None,
+) -> torch.Tensor:
+    """Composites of a batch of candidate poses T_WO_2 (P, 4, 4) ->
+    (P, res, res, 3) u8: the crop path (``render_pose_cropped``) when a crop
+    and an object box are set, else a full-frame fg render of each pose
+    composited over the background. The imagine loop and
+    ``CombinedRenderer.render`` share it."""
+    if crop and obj_aabb is not None:
+        return render_pose_cropped(fg, crop_settings, dirs_cam, intrinsics, obj_aabb, crop,
+                                   T_WO_1, T_WC_1, bg, bg_only_u8, T_WO_2, packed=packed)
+    T_WC_2 = convert_virtual_pose(T_WO_1, T_WO_2, T_WC_1)
+    outs = [render_image(fg, T, dirs_cam, settings, row_chunk=row_chunk) for T in T_WC_2]
+    return torch.stack([composite_one(o["rgb"], o["alpha"], o["depth"], bg) for o in outs])
+
+
+class CombinedRenderer:
+    """Foreground/background NeRF combined renderer.
+
+    fg / bg are the task's movable-object and task-background fields. All
+    camera poses are in the OpenCV ("accio") convention. ``device`` None
+    means CUDA; both fields must lie on the renderer's device.
+    """
+
+    def __init__(
+        self,
+        fg: NGPField,
+        bg: NGPField,
+        settings: RenderSettings = RenderSettings(),
+        res: int = CLIP_RES,
+        intrinsics: Optional[np.ndarray] = None,
+        out_render_path: Optional[str] = None,
+        poses_per_dispatch: int = 64,
+        row_chunk: int = 56,
+        obj_aabb=None,
+        fg_crop: int = 0,
+        crop_settings: Optional[RenderSettings] = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        for name, field in (("fg", fg), ("bg", bg)):
+            got = next(field.parameters()).device
+            if got.type != self.device.type:
+                raise ValueError(f"CombinedRenderer on {self.device}: the {name} field is on {got}")
+        self.fg, self.bg = fg, bg
+        self.settings = settings
+        self.res = res
+        if intrinsics is None:
+            intrinsics = cameras.INTRINSICS_CLIP_VIEW
+        self.intrinsics = np.asarray(intrinsics)
+        self.dirs_cam = cameras.pixel_dirs(res, res, self.intrinsics, device=self.device)
+        self.out_render_path = out_render_path
+        self.poses_per_dispatch = poses_per_dispatch
+        self.row_chunk = row_chunk if res % max(row_chunk, 1) == 0 else 0
+        # Fast path: march the fg only inside the object's projected crop
+        # window with a tight t-range (obj_aabb = the movable object's world
+        # bounds at its initial pose, static for every candidate thanks to
+        # the virtual-camera trick).
+        self.obj_aabb = obj_aabb
+        self.fg_crop = min(fg_crop, res) if fg_crop else 0
+        # Uniform samples over the tight object box; D2R_CROP_SAMPLES sets
+        # their count (default 20, as the reference).
+        self.crop_settings = crop_settings or settings._replace(
+            n_coarse=int(os.environ.get("D2R_CROP_SAMPLES", "20")), n_fine=0
+        )
+
+    # ------------------------------------------------------------ crop guard
+
+    def crop_required(self, T_WO_1, render_poses, poses) -> int:
+        """See ``required_crop``; 0 when no crop is configured."""
+        if not self.fg_crop or self.obj_aabb is None:
+            return 0
+        return required_crop(self.obj_aabb, self.intrinsics, self.res, T_WO_1, render_poses,
+                             poses)
+
+    def bump_crop(self, crop: int) -> None:
+        """Grow the crop window (the guard found candidates that would
+        clip). Nothing is compiled for a crop size here, so that is all."""
+        self.fg_crop = min(int(crop), self.res)
+
+    # ---------------------------------------------------------------- bg
+
+    def _f32(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(
+            device=self.device, dtype=F32)
+
+    def render_background(self, T_WC, gt_depth=None, movable_mask=None) -> BackgroundView:
+        """Render the task background once for a view.
+
+        gt_depth (H, W) metres; movable_mask (H, W) nonzero outside the
+        movable object. Opaque black background: alpha -> 1, premultiplied
+        rgb unchanged. With a scan's depth the composite tests against it,
+        the movable object's pixels pushed to 100."""
+        with torch.inference_mode():
+            out = render_image(self.bg, self._f32(T_WC), self.dirs_cam, self.settings,
+                               row_chunk=self.row_chunk)
+            alpha = torch.ones_like(out["alpha"])
+            if gt_depth is not None:
+                depth = rectify_depth(self._f32(gt_depth), self.res)
+                if movable_mask is not None:
+                    m = rectify_mask(self._f32(movable_mask), self.res)
+                    depth = torch.where(m == 0, torch.full_like(depth, 100.0), depth)
+            else:
+                depth = out["depth"]
+            return BackgroundView(rgb=out["rgb"], alpha=alpha, depth=depth)
+
+    # ---------------------------------------------------------------- fg
+
+    def render(
+        self,
+        valid_poses,          # (K, 4, 4) or (K, 16) candidate world poses
+        render_poses,         # (L, 4, 4) camera poses of the render views
+        render_cam_pose_idx,  # view indices (kept for the reference's signature)
+        depths_gt=None,       # (L, H, W) GT depths of the render views
+        movable_masks=None,   # (L, H, W) nonzero outside the movable object
+        T_WO_1=None,          # the movable object's current pose (4, 4)
+        save: bool = False,
+    ) -> np.ndarray:
+        """Render every candidate pose from every render view. ->
+        (K * L, res, res, 3) uint8 RGB, view-major like the reference. Each
+        dispatch takes ``poses_per_dispatch`` poses, the last one padded
+        with identity poses whose renders are dropped. Writes
+        cb_render/cb_rgb_%04d.png for view 0 when save=True."""
+        valid_poses = self._f32(valid_poses).reshape(-1, 4, 4)
+        render_poses = self._f32(render_poses).reshape(-1, 4, 4)
+        if T_WO_1 is None:
+            raise ValueError("T_WO_1 (movable object pose) is required")
+        T_WO_1 = self._f32(T_WO_1).reshape(4, 4)
+        use_crop = bool(self.fg_crop) and self.obj_aabb is not None
+        packed = None
+        if use_crop and supports(self.fg.cfg, self.crop_settings):
+            packed = pack_params(self.fg)
+
+        k = valid_poses.shape[0]
+        p = min(self.poses_per_dispatch, max(k, 1))
+        all_imgs = []
+        with torch.inference_mode():
+            for view_i in range(render_poses.shape[0]):
+                bg = self.render_background(
+                    render_poses[view_i],
+                    None if depths_gt is None else depths_gt[view_i],
+                    None if movable_masks is None else movable_masks[view_i],
+                )
+                bg_only = background_only_image(bg) if use_crop else None
+                for start in range(0, k, p):
+                    chunk = valid_poses[start : start + p]
+                    pad = p - chunk.shape[0]
+                    if pad:
+                        eye = torch.eye(4, dtype=F32, device=self.device)
+                        chunk = torch.cat([chunk, eye.expand(pad, 4, 4)])
+                    imgs = render_pose_batch(
+                        self.fg, self.settings, self.crop_settings, self.dirs_cam,
+                        self.intrinsics, self.obj_aabb, self.fg_crop, self.row_chunk, T_WO_1,
+                        render_poses[view_i], bg, bg_only, chunk, packed=packed)
+                    all_imgs.append(imgs[: p - pad].cpu().numpy())
+        renders = np.concatenate(all_imgs, axis=0)
+
+        if save and self.out_render_path:
+            if os.path.exists(self.out_render_path):
+                shutil.rmtree(self.out_render_path)
+            os.makedirs(self.out_render_path)
+            # Only view 0's renders are saved, as the reference does.
+            for i in range(min(k, renders.shape[0])):
+                write_png(os.path.join(self.out_render_path, f"cb_rgb_{i:04d}.png"), renders[i])
+        return renders
+

@@ -1,4 +1,5 @@
-"""CLIP attention kernels K2, K3, K4 (port of dream2real_tpu/ops/attention.py).
+"""CLIP attention kernels K2, K3, K4, K9 (port of
+dream2real_tpu/ops/attention.py).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 ``csrc/attention.cu`` for CUDA tensors (or raises):
@@ -7,6 +8,13 @@ Each wrapper takes its plain PyTorch version for CPU tensors and launches
   the card: the LN-fused qkv GEMM kernel, then the K3 attention kernel.
 - ``mha_qkv`` (K3): attention on a projection-layout qkv (B, T, 3W).
 - ``mha(causal=True)`` (K4): causal head-split attention, text tower.
+- ``mha(causal=False)`` (K9): bidirectional head-split attention with exact
+  max-subtraction, the attention kernel addressed through head-split
+  strides.
+- ``head_attention``: the head-split launch in any softmax or probe mode,
+  and ``proj_residual``: the out-projection GEMM with its bias + residual
+  epilogue; both serve the attention bench
+  (``experiments/bench_attention.py``).
 
 Softmax: by default the constant clamp ``exp(min(s, 70) - 70)`` (shift-
 invariant, identical to max-subtraction unless a logit exceeds 70);
@@ -27,6 +35,9 @@ from dream2real_tpu_torch.device import BF16, F32, bf16_round, dot_exact
 
 _MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _HD = 64  # head width the kernel is built for
+# Modes of the attention kernel (csrc/attention.cu).
+MODES = {"clamp": 0, "maxsub": 1, "exact": 2, "nomax": 3, "probe_exp": 4, "probe_softmax": 5,
+         "probe_matmul": 6}
 
 
 def _maxsub() -> bool:
@@ -78,10 +89,12 @@ def mha_qkv_plain(qkv: torch.Tensor, n_heads: int, maxsub: bool) -> torch.Tensor
     return o.to(BF16).permute(0, 2, 1, 3).reshape(B, T, W)
 
 
-def mha_qkv(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+def mha_qkv(qkv: torch.Tensor, n_heads: int, maxsub: bool | None = None) -> torch.Tensor:
     """K3 wrapper: bidirectional attention on projection-layout qkv
-    (B, T, 3W) bf16 -> (B, T, W) bf16; scaling by hd**-0.5 inside."""
-    maxsub = _maxsub()
+    (B, T, 3W) bf16 -> (B, T, W) bf16; scaling by hd**-0.5 inside. ``maxsub``
+    None takes D2R_ATTN_MAXSUB; the attention bench names its mode."""
+    if maxsub is None:
+        maxsub = _maxsub()
     if not qkv.is_cuda:
         return mha_qkv_plain(qkv, n_heads, maxsub)
     B, T, W3 = qkv.shape
@@ -123,12 +136,15 @@ def mha_ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b, n_heads: int, maxsub: bool) -> t
     return mha_qkv_plain(qkv, n_heads, maxsub)
 
 
-def mha_ln_qkv(x, wqkv, bqkv, ln_g, ln_b, n_heads: int) -> torch.Tensor:
+def mha_ln_qkv(x, wqkv, bqkv, ln_g, ln_b, n_heads: int,
+               maxsub: bool | None = None) -> torch.Tensor:
     """K2 wrapper. x (B, T, W) bf16 residual stream; wqkv (W, 3W) bf16;
     bqkv (3W,), ln_g/ln_b (W,) f32. -> (B, T, W) bf16 attention output
-    before the out-projection."""
+    before the out-projection. ``maxsub`` as in ``mha_qkv``."""
+    if maxsub is None:
+        maxsub = _maxsub()
     if not x.is_cuda:
-        return mha_ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b, n_heads, _maxsub())
+        return mha_ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b, n_heads, maxsub)
     B, T, W = x.shape
     dev = x.device
     if W != n_heads * _HD or W % 32 or (3 * W) % 128:
@@ -150,7 +166,7 @@ def mha_ln_qkv(x, wqkv, bqkv, ln_g, ln_b, n_heads: int) -> torch.Tensor:
              build.stream_ptr(dev))
     build.check(err, "ln_qkv")
     mha_ln_qkv.launches += 1
-    return mha_qkv(qkv, n_heads)
+    return mha_qkv(qkv, n_heads, maxsub)
 
 
 mha_ln_qkv.launches = 0
@@ -172,14 +188,25 @@ def mha_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return dot_exact(p, v.to(F32)).to(BF16)
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> torch.Tensor:
-    """Multi-head attention, (B, H, T, D) -> (B, H, T, D); scaling inside.
-    The port has the causal kernel (K4, text tower); the bidirectional
-    head-split kernel (K9) belongs to a later slice."""
-    if not causal:
-        raise NotImplementedError("mha(causal=False) (K9) is not ported yet")
+def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: (B, H, T, D) bf16 -> the same. q scaled by
+    D**-0.5 in bf16, p = bf16(exp(s - rowmax)), the row sum taken over the
+    rounded p and 1/l applied to the f32 output before the bf16 cast."""
+    D = q.shape[-1]
+    qs = bf16_round(q.to(F32) * D**-0.5)
+    s = dot_exact(qs, k.to(F32).transpose(-1, -2))
+    p = bf16_round(torch.exp(s - s.amax(dim=-1, keepdim=True)))
+    return (dot_exact(p, v.to(F32)) / p.sum(dim=-1, keepdim=True)).to(BF16)
+
+
+def head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str,
+                   causal: bool = False) -> torch.Tensor:
+    """Launch the attention kernel on head-split (B, H, T, D) bf16 CUDA
+    tensors in one of ``MODES``; q is scaled by D**-0.5 as it is loaded. No
+    plain version behind it: the callers (``mha`` and the attention bench's
+    wrappers) hold theirs and count their launches."""
     if not q.is_cuda:
-        return mha_causal_plain(q, k, v)
+        raise ValueError("head_attention launches the CUDA kernel; it takes CUDA tensors")
     B, H, T, D = q.shape
     if D != _HD:
         raise ValueError(f"mha: the kernel takes heads of {_HD}, got {D}")
@@ -188,9 +215,62 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False)
     out = torch.empty_like(q)
     strides = (H * T * D, T * D, D)
     _attention_launch(build.ptr(q), build.ptr(k), build.ptr(v), out, B, H, T, strides, strides,
-                      D**-0.5, True, 2, q.device)
+                      D**-0.5, causal, MODES[mode], q.device)
+    return out
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    """Multi-head attention, (B, H, T, D) -> (B, H, T, D); scaling inside.
+    Causal: K4 (text tower, exact softmax). Bidirectional: K9
+    (max-subtraction, 1/l on the output). The reference pads the keys to a
+    multiple of 128 and masks the padding; the kernel bounds its key loop at
+    T instead, which gives the padded keys the same zero weight."""
+    if not q.is_cuda:
+        return mha_causal_plain(q, k, v) if causal else mha_plain(q, k, v)
+    out = head_attention(q, k, v, "exact" if causal else "maxsub", causal)
     mha.launches += 1
     return out
 
 
 mha.launches = 0
+
+
+# ------------------------------------------- out-projection + residual (X3)
+
+
+def proj_residual_plain(a: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    """bf16(f32(x) + (a @ wo + bo)): the product and bias in f32, one
+    rounding at the end."""
+    return (x.to(F32) + (dot_exact(a, wo) + bo.to(F32))).to(BF16)
+
+
+def proj_residual(a: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """The out-projection, bias and residual of the bench's fused block
+    (v13) as one hand-written GEMM: a (B, T, W) bf16 attention output, wo
+    (W, W) bf16, bo (W,) f32, x (B, T, W) bf16 residual stream ->
+    bf16(x + a @ wo + bo), (B, T, W)."""
+    if not a.is_cuda:
+        return proj_residual_plain(a, wo, bo, x)
+    B, T, W = a.shape
+    dev = a.device
+    N = wo.shape[1]
+    if W % 32 or N % 128:
+        raise ValueError(f"proj_residual: unsupported widths {W} -> {N}")
+    _check("proj_residual: a", a, BF16, (B, T, W), dev)
+    _check("proj_residual: wo", wo, BF16, (W, N), dev)
+    _check("proj_residual: bo", bo, F32, (N,), dev)
+    _check("proj_residual: x", x, BF16, (B, T, N), dev)
+    out = torch.empty(B, T, N, dtype=BF16, device=dev)
+    fn = build.load("attention").d2r_gemm_bias_residual
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    err = fn(build.ptr(a), build.ptr(wo), build.ptr(bo), build.ptr(x), B * T, W, N,
+             build.ptr(out), build.stream_ptr(dev))
+    build.check(err, "gemm_bias_residual")
+    proj_residual.launches += 1
+    return out
+
+
+proj_residual.launches = 0

@@ -1,5 +1,6 @@
 """Camera models (port of dream2real_tpu/ops/cameras.py): intrinsics
-constants and per-pixel ray directions with Brown-Conrady undistortion."""
+constants, per-pixel ray directions with Brown-Conrady undistortion, world
+rays of a pose and point projection."""
 
 from __future__ import annotations
 
@@ -58,3 +59,23 @@ def pixel_dirs(
         x, y = xd, yd
 
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def rays_from_pose(T_WC: torch.Tensor, dirs_cam: torch.Tensor):
+    """World-frame ray origins and directions of a camera-to-world pose
+    T_WC (..., 4, 4) (OpenCV convention) and dirs_cam (h, w, 3) from
+    ``pixel_dirs``. -> origins (..., 1, 1, 3), broadcastable, and dirs
+    (..., h, w, 3), z-normalized so that t is z-depth."""
+    dirs = torch.einsum("...ij,hwj->...hwi", T_WC[..., :3, :3], dirs_cam)
+    return T_WC[..., None, None, :3, 3], dirs
+
+
+def project_points(points_w: torch.Tensor, T_CW: torch.Tensor, intrinsics: torch.Tensor):
+    """World points (..., 3) through the world-to-camera pose T_CW (4, 4) ->
+    ((..., 2) [col, row] pixel coordinates, (...,) camera-frame z)."""
+    cam = points_w @ T_CW[:3, :3].T + T_CW[:3, 3]
+    z = cam[..., 2]
+    zc = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    u = cam[..., 0] / zc * intrinsics[0, 0] + intrinsics[0, 2]
+    v = cam[..., 1] / zc * intrinsics[1, 1] + intrinsics[1, 2]
+    return torch.stack([u, v], dim=-1), z

@@ -1,6 +1,7 @@
 """Image ops (port of the parts of dream2real_tpu/ops/image.py on the
 imagine-and-score and training paths): center crop, cv2-exact cubic resize,
-torchvision-exact gaussian blur, linear <-> sRGB."""
+depth / mask rectification to the CLIP view, torchvision-exact gaussian blur,
+linear <-> sRGB."""
 
 from __future__ import annotations
 
@@ -54,6 +55,17 @@ def resize_image(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     Wc = torch.as_tensor(_cubic_resize_matrix(img.shape[1], out_hw[1]), device=img.device)
     out = torch.tensordot(Wr, img, dims=([1], [0]))  # (h_out, w_in, ...)
     return torch.movedim(torch.tensordot(Wc, out, dims=([1], [1])), 0, 1)
+
+
+def rectify_depth(depth: torch.Tensor, resolution: int = 336) -> torch.Tensor:
+    """GT depth (H, W) -> CLIP-view depth (res, res): center crop + cubic."""
+    return resize_image(center_crop_square(depth), (resolution, resolution))
+
+
+def rectify_mask(mask: torch.Tensor, resolution: int = 336) -> torch.Tensor:
+    """GT mask (H, W) -> CLIP-view mask (res, res), resized as float; the
+    caller compares against 0."""
+    return resize_image(center_crop_square(mask.to(torch.float32)), (resolution, resolution))
 
 
 def gaussian_kernel1d(kernel_size: int, sigma: float, dtype=torch.float32, device=None):

@@ -87,3 +87,10 @@ def convert_virtual_pose(
     T_O2_O1 = pose_inverse(T_WO_2) @ T_WO_1
     T_O1_C1 = pose_inverse(T_WO_1) @ T_WC_1
     return (T_WO_1 @ T_O2_O1) @ T_O1_C1
+
+
+def cartesian_prod_6(axes: list[torch.Tensor]) -> torch.Tensor:
+    """torch.cartesian_prod semantics for 6 1-D tensors, last axis fastest.
+    -> (prod(len), 6)."""
+    grids = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([g.reshape(-1) for g in grids], dim=-1)

@@ -27,13 +27,11 @@ from dream2real_tpu_torch.device import F32, resolve_device
 from dream2real_tpu_torch.nerf.combined import (
     BackgroundView,
     background_only_image,
-    composite_one,
-    render_pose_cropped,
+    render_pose_batch,
 )
 from dream2real_tpu_torch.nerf.march_kernel import pack_params, supports
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField
-from dream2real_tpu_torch.nerf.render import RenderSettings, render_image
-from dream2real_tpu_torch.ops.se3 import convert_virtual_pose
+from dream2real_tpu_torch.nerf.render import RenderSettings
 
 
 def make_imagine_and_score(
@@ -81,23 +79,17 @@ def make_imagine_and_score(
         k = poses.shape[0]
         if k % clip_batch:
             raise ValueError(f"{k} poses do not divide into clip batches of {clip_batch}")
+        bg_only = packed = None
         if use_crop:
             bg_only = background_only_image(bg)
             packed = pack_params(fg) if supports(fg.cfg, crop_settings) else None
         scores, renders = [], []
         for start in range(0, k, clip_batch):
-            group = poses[start : start + clip_batch]
-            if use_crop:
-                imgs = render_pose_cropped(
-                    fg, crop_settings, dirs_cam, intrinsics, obj_aabb, fg_crop,
-                    T_WO_1, T_WC_1, bg, bg_only, group, packed=packed,
-                )
-            else:
-                T_WC_2 = convert_virtual_pose(T_WO_1, group, T_WC_1)
-                outs = [render_image(fg, T, dirs_cam, settings, row_chunk=rc) for T in T_WC_2]
-                imgs = torch.stack([
-                    composite_one(o["rgb"], o["alpha"], o["depth"], bg) for o in outs
-                ])
+            imgs = render_pose_batch(
+                fg, settings, crop_settings, dirs_cam, intrinsics, obj_aabb,
+                fg_crop if use_crop else 0, rc, T_WO_1, T_WC_1, bg, bg_only,
+                poses[start : start + clip_batch], packed=packed,
+            )
             pixels = preprocess_images(torch.rot90(imgs, k=1, dims=(1, 2)), clip_cfg)
             emb = encode_image(clip_model, pixels)
             lg = logits_per_image(clip_model, emb, txt_emb)

@@ -83,3 +83,9 @@ def _np_euler_xyz_to_matrix(a, b, c):
     rot[..., 2, 1] = ca * sb * sc + sa * cc
     rot[..., 2, 2] = ca * cb
     return rot
+
+
+def get_virtual_cam_poses(opt_cam_poses, render_cam_pose_idx) -> np.ndarray:
+    """The render views' camera poses picked from the (optimised) training
+    views: a sequence of (4, 4) arrays -> (L, 4, 4)."""
+    return np.stack([np.asarray(opt_cam_poses[i]) for i in render_cam_pose_idx], axis=0)

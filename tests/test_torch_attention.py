@@ -1,6 +1,6 @@
-"""K2 / K3 / K4 (CLIP attention): the port's plain versions against the JAX
-Pallas kernels (interpret mode on the CPU) on the same seeded inputs, at the
-reference's attention tolerance (atol 0.02, rtol 0.05)."""
+"""K2 / K3 / K4 / K9 (CLIP attention): the port's plain versions against the
+JAX Pallas kernels (interpret mode on the CPU) on the same seeded inputs, at
+the reference's attention tolerance (atol 0.02, rtol 0.05)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,10 +67,30 @@ def test_mha_causal_plain_matches_pallas(T):
     np.testing.assert_allclose(_np(out), _np(ref), **TOL)
 
 
+@pytest.mark.parametrize("T", [45, 64])
+def test_mha_bidirectional_plain_matches_pallas(T, capsys):
+    """K9: mha(causal=False) against the reference's _attn_kernel2, with T a
+    multiple of 8 and not (the reference pads queries to 8 and keys to 128
+    and masks the padding; the port attends over the T keys)."""
+    rng = np.random.default_rng(300 + T)
+    pairs = [_bf16_pair(rng.normal(size=(B, H, T, D))) for _ in range(3)]
+    ref = jatt.mha(*(p[0] for p in pairs))
+    out = tatt.mha(*(p[1] for p in pairs))
+    assert out.shape == (B, H, T, D) and out.dtype == torch.bfloat16
+    with capsys.disabled():
+        print(f"\nK9 T={T}: max |port - pallas| {np.abs(_np(out) - _np(ref)).max():.3e} "
+              f"(allowed atol 0.02 + rtol 0.05)")
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL)
+
+
 def test_k9_not_ported_and_cpu_launches_nothing():
-    """The bidirectional head-split kernel (K9) is not part of this port yet;
-    on the CPU the wrappers run their plain versions and launch nothing."""
+    """K9 is ported (the name is from before): mha(causal=False) runs on the
+    CPU; there the wrappers run their plain versions and launch nothing."""
     x = torch.zeros(1, 2, 5, 16, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        tatt.mha(x, x, x, causal=False)
+    assert tatt.mha(x, x, x, causal=False).shape == x.shape
+    with pytest.raises(ValueError):
+        tatt.head_attention(x, x, x, "maxsub")  # the bare launch takes CUDA tensors only
+    assert tatt.proj_residual(x[0], torch.zeros(16, 16, dtype=torch.bfloat16), torch.zeros(16),
+                              x[0]).shape == x[0].shape
     assert tatt.mha_qkv.launches == 0 and tatt.mha_ln_qkv.launches == 0 and tatt.mha.launches == 0
+    assert tatt.proj_residual.launches == 0

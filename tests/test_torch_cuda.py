@@ -198,3 +198,125 @@ def test_render_rays_train_on_the_card(dev, monkeypatch):
         assert float(out["alpha"][:64].detach().abs().max()) == 0.0
         assert all(torch.isfinite(p.grad).all() for p in field.parameters())
         field.zero_grad()
+
+
+def _close(got, ref, what):
+    torch.testing.assert_close(got.float(), ref.float(), atol=0.02, rtol=0.05, msg=what)
+
+
+@pytest.mark.parametrize("T", [77, 128])
+def test_bidirectional_and_bench_attention_match_plain(dev, T):
+    """K9 and the attention bench's X1 variants and probes against their
+    plain versions; T = 77 pads to 80 (three unmasked zero keys), 128 pads
+    nothing."""
+    from dream2real_tpu_torch.experiments import bench_attention as ba
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, 3, T, 64, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    before = att.mha.launches
+    _close(att.mha(q, k, v), att.mha_plain(q, k, v), "K9")
+    assert att.mha.launches == before + 1
+    for fn, nomax in ((ba.mha_v1_unrolled, False), (ba.mha_v3_pipelined, False),
+                      (ba.mha_v2_nomax, True)):
+        n = fn.launches
+        _close(fn(q, k, v), ba.mha_x1_plain(q, k, v, nomax=nomax), fn.__name__)
+        assert fn.launches == n + 1
+    same = torch.equal(ba.mha_v1_unrolled(q, k, v), att.mha(q, k, v))
+    assert same == (T % 8 == 0)  # the padded zero keys change X1's result
+    for name in ba.PROBES:
+        n = ba.probe.launches[name]
+        got, ref = ba.probe(name)(q, k, v).float(), ba.probe_plain(name, q, k, v).float()
+        assert ba.probe.launches[name] == n + 1
+        if name == "matmul_only":  # unnormalised sums: relative to the largest output
+            assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+        else:
+            _close(got, ref, name)
+
+
+def test_bench_projection_and_fused_blocks_match_plain(dev):
+    """X2 (v8-v11), X4 (v12) and X3 (v13, with the hand-written out-projection
+    GEMM) against their plain versions at ViT-L width, T = 77."""
+    from dream2real_tpu_torch.experiments import bench_attention as ba
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, T, W, H = 2, 77, 1024, 16
+    qkv = (torch.randn(B, T, 3 * W, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    for kern, maxsub in ba.V8_KERNELS.items():
+        n, n3 = ba.mha_v8_projlayout.launches[kern], att.mha_qkv.launches
+        _close(ba.mha_v8_projlayout(qkv, H, kern), att.mha_qkv_plain(qkv, H, maxsub), kern)
+        assert ba.mha_v8_projlayout.launches[kern] == n + 1 and att.mha_qkv.launches == n3 + 1
+    x = (torch.randn(B, T, W, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    w = (torch.randn(W, 3 * W, generator=gen, device=dev) * W**-0.5).to(torch.bfloat16)
+    wo = (torch.randn(W, W, generator=gen, device=dev) * W**-0.5).to(torch.bfloat16)
+    bq = torch.randn(3 * W, generator=gen, device=dev) * 0.02
+    bo = torch.randn(W, generator=gen, device=dev) * 0.02
+    g = 1 + 0.1 * torch.randn(W, generator=gen, device=dev)
+    b = 0.1 * torch.randn(W, generator=gen, device=dev)
+    n12, n13, ng = ba.block_fused.launches, ba.block_fused_o.launches, att.proj_residual.launches
+    _close(ba.block_fused(x, w, bq, g, b, H), att.mha_ln_qkv_plain(x, w, bq, g, b, H, False),
+           "v12")
+    got = ba.block_fused_o(x, w, bq, g, b, wo, bo, H).float()
+    ref = ba.block_fused_o_plain(x, w, bq, g, b, wo, bo, H).float()
+    assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())  # the bench's maxrel
+    assert (ba.block_fused.launches, ba.block_fused_o.launches, att.proj_residual.launches) == (
+        n12 + 1, n13 + 1, ng + 1)
+    # The GEMM alone on a ragged M (B * T = 154 rows, not a multiple of 128).
+    a = att.mha_ln_qkv(x, w, bq, g, b, H, maxsub=False)
+    # Element by element within one bf16 step of the plain result; with a
+    # zero residual the product is all of the result.
+    for resid, atol in ((x, 2e-3), (torch.zeros_like(x), 5e-4)):
+        got = att.proj_residual(a, wo, bo, resid).float()
+        ref = att.proj_residual_plain(a, wo, bo, resid).float()
+        assert float(((got - ref).abs() - 2**-7 * ref.abs()).max()) <= atol
+    with pytest.raises(ValueError):
+        att.proj_residual(a, wo[:, :100].contiguous(), bo[:100], x)  # N not a multiple of 128
+
+
+def test_fused_score_on_the_card_saves_what_it_scores(dev, tmp_path, monkeypatch):
+    """_fused_score on the card: the side-stream copies and the writer
+    threads give the same scores and files as a run that saves nothing, for
+    one slab and for several under a zero pending cap."""
+    from dream2real_tpu_torch import scoring
+    from dream2real_tpu_torch.clip import model as cm
+    from dream2real_tpu_torch.clip.scorer import ClipScorer
+    from dream2real_tpu_torch.clip.tokenizer import hash_tokenize
+    from dream2real_tpu_torch.nerf.combined import CombinedRenderer
+    from dream2real_tpu_torch.utils.png import read_png
+
+    cfg = NGPConfig(aabb_min=(0.0, -0.6, -0.1), aabb_max=(1.1, 0.6, 0.9))
+    field = init_ngp_params(cfg, torch.Generator(device=dev).manual_seed(6), device=dev)
+    res = 112
+    K = np.array([[0.9 * res, 0, res / 2], [0, 0.9 * res, res / 2], [0, 0, 1.0]])
+    st = RenderSettings(n_coarse=8, n_fine=8, near=0.05, far=2.0)
+    r = CombinedRenderer(field, field, settings=st, res=res, intrinsics=K, row_chunk=56,
+                         obj_aabb=((0.35, -0.1, 0.0), (0.65, 0.1, 0.15)), fg_crop=48)
+    ccfg = cm.CLIPConfig(image_size=res, vision_layers=2, text_layers=1)
+    clip = cm.init_clip_params(ccfg, torch.Generator(device=dev).manual_seed(7), device=dev)
+    scorer = ClipScorer(clip, batch_size=4)
+    T_WO = np.eye(4, dtype=np.float32)
+    T_WO[:3, 3] = [0.5, 0.0, 0.05]
+    cam = np.array([[1, 0, 0, 0.5], [0, -1, 0, 0.0], [0, 0, -1, 0.7], [0, 0, 0, 1]], np.float32)
+    poses = np.tile(T_WO[None], (10, 1, 1))
+    poses[:, 0, 3] += np.linspace(-0.08, 0.12, 10)
+
+    class TM:
+        goal_caption, norm_captions = "a red box", None
+
+    def run(**kw):
+        return scoring._fused_score(r, scorer, hash_tokenize, TM, poses, cam[None], None, None,
+                                    T_WO, False, **kw)
+
+    plain = run()
+    r.out_render_path = str(tmp_path / "one")
+    np.testing.assert_array_equal(run(save_renders=True), plain)
+    monkeypatch.setenv("D2R_SCORE_SLAB", "4")
+    monkeypatch.setenv("D2R_RENDER_PENDING_MB", "0")
+    r.out_render_path = str(tmp_path / "slabs")
+    np.testing.assert_array_equal(run(save_renders=True), plain)
+    assert scoring.LAST_RUN_INFO["n_slabs"] == 3
+    renders = r.render(poses, cam[None], [0], T_WO_1=T_WO)
+    for d in ("one", "slabs"):
+        for i in (0, 9):
+            np.testing.assert_array_equal(
+                read_png(str(tmp_path / d / f"cb_rgb_{i:04d}.png")), renders[i])

@@ -57,7 +57,11 @@ def test_entry_points_refuse_a_silent_cpu_fallback():
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the CUDA default is valid here")
-    from dream2real_tpu_torch.cli.selftest import run_selftest
+    from dream2real_tpu_torch.cli import bench as cli_bench
+    from dream2real_tpu_torch.cli.selftest import clip_load_dryrun, run_selftest
+    from dream2real_tpu_torch.clip.convert import model_from_hf_state_dict
+    from dream2real_tpu_torch.experiments import bench_attention
+    from dream2real_tpu_torch.nerf.combined import CombinedRenderer
     from dream2real_tpu_torch.clip.model import CLIPConfig, CLIPModel
     from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField
     from dream2real_tpu_torch.nerf.trainer import TrainConfig, init_train_state
@@ -77,8 +81,18 @@ def test_entry_points_refuse_a_silent_cpu_fallback():
                                        pixel_dirs(8, 8, K, device="cpu"), 1),
         lambda: init_train_state(NGPConfig(), TrainConfig(), 2),
         lambda: run_selftest(views=2, steps=1, small=True),
+        # The entry points of the grid scorer and the benches: the
+        # renderer fixes the device optimise_pose_grid runs on.
+        lambda: CombinedRenderer(NGPField(NGPConfig(), device="cpu"),
+                                 NGPField(NGPConfig(), device="cpu")),
+        lambda: bench_attention.main(["1"]),
+        lambda: cli_bench.main([]),
+        lambda: clip_load_dryrun(),
+        lambda: model_from_hf_state_dict({}, tiny),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert NGPField(NGPConfig(), device="cpu").trunk_w0.device.type == "cpu"
+    cpu_field = NGPField(NGPConfig(), device="cpu")
+    assert CombinedRenderer(cpu_field, cpu_field, res=8, device="cpu").device.type == "cpu"

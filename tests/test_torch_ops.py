@@ -118,3 +118,45 @@ def test_sample_pdf_and_composite_parity():
                              torch.from_numpy(ts), torch.from_numpy(dn), 1e-4)
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
+
+
+def test_rectify_depth_and_mask_parity():
+    rng = np.random.default_rng(4)
+    depth = rng.uniform(0.2, 2.0, size=(36, 64)).astype(np.float32)
+    mask = (rng.random((36, 64)) > 0.3)
+    np.testing.assert_allclose(timg.rectify_depth(torch.from_numpy(depth), 24).numpy(),
+                               np.asarray(jimg.rectify_depth(jnp.asarray(depth), 24)), **TOL)
+    out = timg.rectify_mask(torch.from_numpy(mask), 24).numpy()
+    ref = np.asarray(jimg.rectify_mask(jnp.asarray(mask), 24))
+    assert out.shape == (24, 24)
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_array_equal(out == 0, ref == 0)
+
+
+def test_rays_project_and_cartesian_parity():
+    rng = np.random.default_rng(5)
+    _, T = _poses(rng, 3)
+    K = np.array([[52.0, 0, 31.5], [0, 51.0, 24.0], [0, 0, 1.0]], np.float32)
+    jdirs = jcam.pixel_dirs(6, 8, jnp.asarray(K))
+    tdirs = tcam.pixel_dirs(6, 8, K, device="cpu")
+    jo, jd = jcam.rays_from_pose(jnp.asarray(T), jdirs)
+    to, td = tcam.rays_from_pose(torch.from_numpy(T), tdirs)
+    assert to.shape == (3, 1, 1, 3) and td.shape == (3, 6, 8, 3)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), **TOL)
+    pts = rng.normal(size=(5, 7, 3)).astype(np.float32)
+    juv, jz = jcam.project_points(jnp.asarray(pts), jnp.asarray(T[0]), jnp.asarray(K))
+    tuv, tz = tcam.project_points(torch.from_numpy(pts), torch.from_numpy(T[0]),
+                                  torch.from_numpy(K))
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(tuv.numpy(), np.asarray(juv), atol=1e-3, rtol=1e-4)
+    axes = [rng.normal(size=n).astype(np.float32) for n in (2, 3, 1, 2, 1, 3)]
+    np.testing.assert_array_equal(
+        tse3.cartesian_prod_6([torch.from_numpy(a) for a in axes]).numpy(),
+        np.asarray(jse3.cartesian_prod_6([jnp.asarray(a) for a in axes])))
+    np.testing.assert_array_equal(
+        tse3.cartesian_prod_6([torch.from_numpy(a) for a in axes]).numpy(),
+        torch.cartesian_prod(*[torch.from_numpy(a) for a in axes]).numpy())
+    cams = [np.eye(4) * i for i in range(4)]
+    np.testing.assert_array_equal(tsampling.get_virtual_cam_poses(cams, [2, 0]),
+                                  jsampling.get_virtual_cam_poses(cams, [2, 0]))
