@@ -25,6 +25,10 @@ SOURCES = ("march", "attention", "train")
 # No --use_fast_math: the march's sin/cos arguments reach 2^9*pi rad, where
 # the fast intrinsics are wrong, and fast math flushes the denormals that the
 # clamp softmax exp(min(s, 70) - 70) produces for logits below about -17.
+# The flags link the CUDA runtime only. attention.cu's TMA tensor maps need one
+# function of libcuda (cuTensorMapEncodeTiled); it fetches that entry point at
+# run time through cudaGetDriverEntryPoint, so no -lcuda here. The `a` of sm_90a
+# is what wgmma needs.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

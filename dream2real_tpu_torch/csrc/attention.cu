@@ -7,7 +7,7 @@
 //   K2 mha_ln_qkv         (Pallas body _attn_kernel4)
 //   K3 mha_qkv            (Pallas body _attn_kernel3)
 //   K4 mha(causal=True)   (Pallas body _attn_kernel)
-//   K9 mha(causal=False)  (Pallas body _attn_kernel2): attn_kernel in mode
+//   K9 mha(causal=False)  (Pallas body _attn_kernel2): attn_fwd in mode
 //      maxsub through head-split strides, q scaled by D^-0.5 as it is loaded
 // and, in experiments/bench_attention.py:
 //   X1 _call: _kernel_unrolled / _kernel_pipelined are K9's function (mode
@@ -17,193 +17,729 @@
 //   X2 _mha_v8_projlayout: K3's launch in modes maxsub (v8, v10) and clamp
 //      (v9, v11)
 //   X4 _block_fused: K2's kernels with the attention in mode clamp
-//   X3 _block_fused_o: X4, then gemm_bf16 with the bias + residual epilogue
+//   X3 _block_fused_o: X4, then gemm_tma with the bias + residual epilogue
 //      (the out-projection the TPU body holds)
 //
-// K2 on Hopper is two hand-written parts: gemm_bf16<LN> below (LN1 folded into
-// the A-tile load of a tiled bf16 GEMM, row statistics from ln_stats), which
-// writes the (B, T, 3W) bf16 qkv, then the K3 attention kernel on it. The
-// TPU kernel kept Wqkv (6 MB) resident in VMEM; a Hopper block has 227 KB,
-// so the GEMM tiles it instead.
+// Three pieces of device code, the first two designed for Hopper:
 //
-// Bound on the H100: tensor-core operations. K2 at the scoring shape (32
-// images x 577 tokens, W 1024, 16 heads of 64): 2*T*W*3W + 4*H*T^2*hd =
-// 4.99 GFLOP per image, 0.16 ms per 32-image launch at 989 TFLOP/s dense
-// bf16; K3 alone 43.6 GFLOP, 0.044 ms. K4 (12 heads x 77 tokens) is bound by
-// launch latency.
-//
-// Design: the attention kernel runs one block per (query tile of 64, head,
-// image); each of 4 warps owns 16 query rows. It reads q/k/v straight from
-// the caller's layout through strides (the projection layout (B, T, 3W) for
-// K2/K3, the head-split (B, H, T, D) layout for K4), stages 64-key tiles of
-// K and V in shared memory and runs QK^T and PV with WMMA bf16 fragments and
-// f32 accumulators. Softmax modes:
+// attn_fwd<MODE> (K2's second half, K3, K9, X1, X2). Bound at the scoring
+// shape (32 images x 16 heads x 577 tokens x 64): 151 MB at 3.35 TB/s is
+// 0.045 ms, and the 43.6 GFLOP take 0.044 ms at 989 TFLOP/s, so neither the
+// loads nor the softmax may stall the tensor cores. A block is two
+// warpgroups of 64 query rows each (128 rows share every K / V tile). Q, K
+// and V come through TMA: tensor maps over the caller's strides (built by the
+// launch function), boxes of 128 rows of one head that land 128-byte swizzled
+// as wgmma reads them, rows past T zero-filled. K and V tiles of 128 keys
+// fill a ring of 3 stages guarded by full / empty mbarriers; one thread of
+// the block asks for a tile as soon as every warp has left the stage, so the
+// next tiles are in flight while this one is multiplied, no thread spends
+// instructions on the copies, and the two warpgroups meet at no barrier. S = Q K^T is one wgmma m64n128k16 chain per warpgroup with Q
+// and K from shared memory (a K row of 64 bf16 is one swizzle atom, K-major)
+// and the scores in registers. The softmax runs on those registers: a row
+// lives in the four lanes of a quad, the weights are rounded to bf16 and
+// packed in place (the accumulator layout of 16 columns is the A-fragment
+// layout), the row sum is taken over the rounded weights, and O += P V reads
+// P from registers and V from shared memory as the MN-major B operand. No
+// score or weight touches shared memory. q is not scaled on the way in: the
+// scale 64^-0.5 is a power of two, so scaling the f32 scores is the same
+// arithmetic as the reference's bf16(q * scale). exp is ex2.approx on s * log2(e),
+// with the clamp softmax's subnormal weights kept (see ex2_biased). A last
+// key tile of at most 80 keys (T = 577 leaves 65) runs 80 columns wide. The
+// kernel takes 128 registers, so two blocks share an SM and one's loads and
+// waits hide under the other's work (the shared memory is sized to the byte
+// for that). The output goes through the block's Q tile to 16-byte stores.
+// q, k, v are addressed by element strides: the projection layout (B, T, 3W)
+// and the head-split layout (B, H, T, D).
 //   0 clamp   p = bf16(exp(min(s, 70) - 70)); l += p; o += p v; out = o / l.
-//             No running max and no rescaling: the TPU's full-row math up to
-//             summation order.
-//   1 maxsub  a first pass over the keys takes the exact row max m, then
-//             p = bf16(exp(s - m)); out = o / l.
-//   2 exact   (K4) passes for the row max and the f32 row sum, then
-//             p = bf16(exp(s - m) / l); out = o. Masked keys (padding,
-//             causal) get weight 0, the same as the reference's -1e9 bias
-//             or -0.7*f32max mask.
+//             No running max and no rescaling.
+//   1 maxsub  a first pass over the key tiles (K only) takes the exact row
+//             max m, then p = bf16(exp(s - m)); out = o / l: every rounding
+//             where the plain version has it.
 //   3 nomax   p = bf16(exp(s)); l += p; out = o / l. No max and no clamp, as
 //             the bench's _kernel_nomax: a logit above 88 overflows.
+// Keys at or past T get weight exactly 0 in every mode; query rows at or
+// past T are not stored.
 // Floor probes of the bench (their outputs are fabricated; their use is
-// their time). Each keeps the K and V tile loads, as the TPU probes keep
-// their DMA, and leaves out what its TPU body leaves out:
+// their time). Each keeps the K and V tile loads and leaves out what its TPU
+// body leaves out:
 //   4 exp only      no products, no reductions: every score of a row is
-//                   f32(q[row, 0]) written to the score buffer, then the exp
-//                   pass p = bf16(exp(s)); out = p[:, :64].
-//   5 softmax only  no products: the same fabricated scores through the max
-//                   pass, p = bf16(exp(s - m)), l += p; out = p[:, :64] / l.
+//                   f32(q[row, 0]), then p = bf16(exp(s)); out = p[:, :64].
+//   5 softmax only  no products: the same scores through the max pass,
+//                   p = bf16(exp(s - m)), l += p; out = p[:, :64] / l.
 //   6 matmul only   QK^T and PV with the softmax replaced by a cast:
 //                   p = bf16(s); out = o.
-// The probes visit key tile 0 last, so that the weight buffer then holds
-// the first 64 columns of p.
+// The fabricated scores are built in registers as bits(q[row, 0]) |
+// ((w + i) & mask), where w is a word this thread reads from the K tile just
+// loaded and mask is a kernel argument that is 0 at run time: the compiler
+// cannot prove the scores equal across columns or tiles, so the exp pass
+// stays in the tile loop, once per score. The probes visit key tile 0 last,
+// so that the weight registers end as the first columns of p.
+//
+// gemm_tma<RESID> (K2's qkv projection, X3's out-projection): out = bf16(a @
+// W + bias [+ resid]) for a (M x K), W (K x N) row-major. Bound by the tensor
+// cores: the qkv product is 116 GFLOP, 0.117 ms. 128 x 128 output tiles;
+// 64-deep A and W tiles land in 128-byte-swizzled shared memory through TMA
+// (tensor maps built by the launch function; rows past M are zero-filled) in
+// a ring of 3 stages guarded by full / empty mbarriers. Two warpgroups run
+// wgmma m64n128k16 with A K-major and W as the MN-major B operand, one group
+// in flight, and one thread refills a stage as soon as every warp has left
+// it; 96 KB and under 128 registers, so two blocks share an SM and one's
+// epilogue runs under the other's products (a producer warpgroup with
+// setmaxnreg, 4 stages and one block an SM measured 6% slower). The epilogue
+// adds the bias (and the residual) in f32 on the accumulator registers,
+// rounds once to bf16 and stores 16 bytes a thread through a per-warp
+// staging tile. K2's LN1 is a pass of its own (ln_rows: xn = bf16(LN(x)),
+// the reference's rounding place) and the GEMM reads xn like any A.
+//
+// attn_exact (K4: 3 captions x 12 heads x 77 tokens, 72 blocks, bound by
+// launch latency) is the WMMA tile loop of the first port slice with the
+// exact softmax: passes for the row max and the f32 row sum, then
+// p = bf16(exp(s - m) / l); out = o. Masked keys (padding, causal) get
+// weight 0, the same as the reference's -1e9 bias or -0.7*f32max mask.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// ---------------------------------------------------------------- LN1 stats
+struct Strides {
+  long b, h, t;  // element strides of q/k/v (dim contiguous)
+  long ob, oh, ot;  // element strides of out
+};
 
-// One warp per row: mean and 1/sqrt(var + eps) of x (M x K) in f32, two-pass
-// like the reference (var = mean((x - mu)^2)).
-__global__ void ln_stats(const bf16* __restrict__ x, int M, int K, float eps,
-                         float* __restrict__ mu_out, float* __restrict__ rstd_out) {
+constexpr int kHd = 64;  // head dim (CLIP ViT-L/14 and its text tower)
+
+// ------------------------------------------------------------- PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Orders this thread's shared-memory writes before reads by the async proxy
+// (wgmma operands, TMA).
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled tile whose rows are 128
+// bytes (64 bf16) and whose base is 1024-byte aligned. K-major operands
+// (rows = M or N, the 64 columns = K): sbo is the distance between groups of
+// 8 rows, lbo is unused. MN-major operands (rows = K, columns = 64 of M or
+// N): sbo is the distance between groups of 8 K rows, lbo the distance
+// between chunks of 64 columns.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFFu) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
+}
+// Byte offset of 16-byte chunk c of row r in such a tile.
+__device__ __forceinline__ uint32_t sw128_off(int r, int c) {
+  return uint32_t(r) * 128u + (uint32_t(c ^ (r & 7)) << 4);
+}
+
+#define D2R_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define D2R_F16(d, i) D2R_F4(d, i), D2R_F4(d, i + 4), D2R_F4(d, i + 8), D2R_F4(d, i + 12)
+
+// d (64 x 128 f32, this warpgroup's accumulator) = or += A (64 x 16, shared)
+// * B (16 x 128, shared). TNSP_B 0: B is K-major (rows = N); 1: MN-major.
+template <int TNSP_B>
+__device__ __forceinline__ void wgmma_64x128x16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : D2R_F16(d, 0), D2R_F16(d, 16), D2R_F16(d, 32), D2R_F16(d, 48)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TNSP_B));
+}
+
+// The same with 80 columns (K-major B), for a last key tile of at most 80
+// keys: d[0..39] = or += A * B.
+__device__ __forceinline__ void wgmma_64x80x16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : D2R_F16(d, 0), D2R_F16(d, 16), D2R_F4(d, 32), D2R_F4(d, 36)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16, this thread's fragment registers) * B
+// (16 x 64, shared, MN-major: rows = K).
+__device__ __forceinline__ void wgmma_64x64x16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                  uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"  // accumulate
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : D2R_F16(d, 0), D2R_F16(d, 16)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// 2^x for x <= 0 with the subnormal results kept: without .ftz the
+// instruction expands to a range test and two extra multiplies per value, so
+// the exponent is raised by 24 inside the fast form, whose result is then
+// never subnormal above 2^-150, and the multiply by 2^-24 rounds into the
+// subnormal range as f32 arithmetic does.
+__device__ __forceinline__ float ex2_biased(float x_plus_24) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x_plus_24));
+  return y * 5.9604644775390625e-08f;
+}
+// Two f32 rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
+
+// ------------------------------------------------------ LN1 (K2's prologue)
+
+// One warp per row: xn = bf16(((x - mu) * rstd) * g + beta) with mu and
+// rstd = rsqrt(var + eps) in f32, two-pass like the reference
+// (var = mean((x - mu)^2)). Each product and sum is rounded on its own, as
+// the plain version's separate tensor operations round them: a fused
+// multiply-add would move a bf16 rounding of xn now and then. K % 8 == 0.
+__global__ void ln_rows(const bf16* __restrict__ x, const float* __restrict__ g,
+                        const float* __restrict__ beta, int M, int K, float eps,
+                        bf16* __restrict__ xn) {
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
-  const bf16* xr = x + size_t(row) * K;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + size_t(row) * K);
+  const int chunks = K >> 3;
   float sum = 0.0f;
-  for (int k = lane; k < K; k += 32) sum += __bfloat162float(xr[k]);
+  for (int c = lane; c < chunks; c += 32) {
+    const uint4 u = xr[c];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum += bf16_lo(w[e]) + bf16_hi(w[e]);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   const float mu = sum / float(K);
   float sq = 0.0f;
-  for (int k = lane; k < K; k += 32) {
-    const float dv = __bfloat162float(xr[k]) - mu;
-    sq += dv * dv;
+  for (int c = lane; c < chunks; c += 32) {
+    const uint4 u = xr[c];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d0 = bf16_lo(w[e]) - mu, d1 = bf16_hi(w[e]) - mu;
+      sq += d0 * d0 + d1 * d1;
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-  if (lane == 0) {
-    mu_out[row] = mu;
-    rstd_out[row] = 1.0f / sqrtf(sq / float(K) + eps);
+  const float rstd = rsqrtf(sq / float(K) + eps);
+  uint4* outr = reinterpret_cast<uint4*>(xn + size_t(row) * K);
+  for (int c = lane; c < chunks; c += 32) {
+    const uint4 u = xr[c];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    const float4 g0 = *reinterpret_cast<const float4*>(g + c * 8);
+    const float4 g1 = *reinterpret_cast<const float4*>(g + c * 8 + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(beta + c * 8);
+    const float4 b1 = *reinterpret_cast<const float4*>(beta + c * 8 + 4);
+    const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    uint32_t r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      r[e] = pack_bf16(
+          __fadd_rn(__fmul_rn(__fmul_rn(bf16_lo(w[e]) - mu, rstd), gg[2 * e]), bb[2 * e]),
+          __fadd_rn(__fmul_rn(__fmul_rn(bf16_hi(w[e]) - mu, rstd), gg[2 * e + 1]), bb[2 * e + 1]));
+    outr[c] = make_uint4(r[0], r[1], r[2], r[3]);
   }
 }
 
-// ------------------------------------- bf16 GEMM (LN1 prologue / residual)
+// ------------------------------------------------- bf16 GEMM (TMA + wgmma)
 
-constexpr int kGBM = 128, kGBN = 128, kGBK = 32;
-constexpr int kGThreads = 256;  // 8 warps: 4 along M x 2 along N, 32 x 64 each
-constexpr int kGALd = kGBK + 8;
-constexpr int kGBLd = kGBN + 8;
+constexpr int kGM = 128, kGN = 128, kGK = 64;
+constexpr int kGThreads = 256;  // two warpgroups of 64 rows each
+constexpr int kGATile = kGM * kGK * 2;  // 16 KB
+constexpr int kGBTile = kGK * kGN * 2;  // 16 KB: two chunks of 64 columns
+constexpr int kGStage = kGATile + kGBTile;
+constexpr int kGStages = 3;
 
-// kLN (K2's qkv projection): out (M x N) = bf16( bf16(LN(x)) @ W + bias ),
-// LN(x) = ((x - mu) * rstd) * g + beta rounded to bf16 as the A tile is
-// loaded. Without kLN the A tile is x as it is.
-// kResid (X3's out-projection): out = bf16( f32(resid) + (x @ W + bias) ),
-// the product and the bias summed in f32 first, one rounding at the end.
-// Needs K % 32 == 0, N % 128 == 0.
-template <bool kLN, bool kResid>
-__global__ void __launch_bounds__(kGThreads)
-    gemm_bf16(const bf16* __restrict__ x, const float* __restrict__ mu,
-              const float* __restrict__ rstd, const float* __restrict__ g,
-              const float* __restrict__ beta, const bf16* __restrict__ W,
-              const float* __restrict__ bias, const bf16* __restrict__ resid, int M, int K,
-              int N, bf16* __restrict__ out) {
-  __shared__ __align__(128) bf16 sA[kGBM * kGALd];
-  __shared__ __align__(128) bf16 sB[kGBK * kGBLd];
-  __shared__ __align__(128) float scratch[8 * 256];
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Spins until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One box of the tensor map -> shared memory; completion counts on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c_inner, int c_outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c_inner), "r"(c_outer)
+      : "memory");
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * kGBM, n0 = blockIdx.x * kGBN;
+// One box of a 4-d tensor map -> shared memory; completion counts on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+// out (M x N) = bf16(a @ W + bias), or with kResid bf16(f32(resid) + (a @ W +
+// bias)): the product and the bias summed in f32 first, one rounding at the
+// end. map_a: a (M x K) in boxes of 64 (K) x 128 rows; map_w: W (K x N) in
+// boxes of 64 (N) x 64 (K), both 128-byte swizzled. K % 64 == 0,
+// N % 128 == 0.
+// Two warpgroups of 64 rows, 3 stages, two blocks an SM (one's epilogue runs
+// under the other's products); thread 0 refills a stage once every warp has
+// left it.
+template <bool kResid>
+__global__ void __launch_bounds__(kGThreads, 2)
+    gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+             const float* __restrict__ bias, const bf16* __restrict__ resid, int M, int K, int N,
+             bf16* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  unsigned char* gbase = smem_raw;
+  if (base & 1023u) __trap();
+  const uint32_t bars = base + kGStages * kGStage;  // full[kGStages], empty[kGStages]
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int nk = K / kGK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(bars + 8 * s, 1);          // full: the requesting thread's expect_tx arrival
+      mbar_init(bars + 8 * (kGStages + s), 8);  // empty: one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_async_proxy();
+  }
+  __syncthreads();
+  auto request = [&](int kb) {
+    const int s = kb % kGStages;
+    const uint32_t full = bars + 8 * s, sA = base + s * kGStage, sB = sA + kGATile;
+    mbar_expect_tx(full, kGStage);
+    tma_load_2d(sA, &map_a, full, kb * kGK, m0);
+    tma_load_2d(sB, &map_w, full, n0, kb * kGK);
+    tma_load_2d(sB + kGBTile / 2, &map_w, full, n0 + 64, kb * kGK);
+  };
+  if (tid == 0)
+    for (int kb = 0; kb < kGStages && kb < nk; ++kb) request(kb);
+
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % kGStages;
+    mbar_wait(bars + 8 * s, (kb / kGStages) & 1);
+    const uint32_t sA = base + s * kGStage + wg * (64 * 128), sB = base + s * kGStage + kGATile;
+    const uint64_t dA = sw128_desc(sA, 16, 1024), dB = sw128_desc(sB, kGBTile / 2, 1024);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int kk = 0; kk < kGK / 16; ++kk)
+      wgmma_64x128x16_ss<1>(acc, dA + 2 * kk, dB + (2048 >> 4) * kk, 1);
+    wgmma_commit();
+    // One group stays in flight; the one before has finished with its stage.
+    wgmma_wait<1>();
+    if (kb > 0) {
+      const int prev = kb - 1;
+      if (lane == 0) mbar_arrive(bars + 8 * (kGStages + prev % kGStages));
+      if (tid == 0 && prev + kGStages < nk) {
+        mbar_wait(bars + 8 * (kGStages + prev % kGStages), (prev / kGStages) & 1);
+        request(prev + kGStages);
+      }
+      __syncwarp();  // thread 0's lanes wait for it before the next wgmma
+    }
+  }
+  wgmma_wait<0>();
+  __syncthreads();  // every warp is done with the ring: stage through it
 
-  for (int k0 = 0; k0 < K; k0 += kGBK) {
-    // A tile: 128 rows x 32 cols, 8 bf16 per vector, normalised on the way in.
-    for (int i = threadIdx.x; i < kGBM * (kGBK / 8); i += kGThreads) {
-      const int r = i / (kGBK / 8), c = (i % (kGBK / 8)) * 8;
-      const int m = m0 + r;
-      __align__(16) bf16 v[8];
-      if (m < M) {
-        *reinterpret_cast<uint4*>(v) =
-            *reinterpret_cast<const uint4*>(x + size_t(m) * K + k0 + c);
-        if (kLN) {
-          const float mu_m = mu[m], r_m = rstd[m];
+  // Epilogue through a per-warp staging tile of 16 rows x 128 columns (256
+  // bytes a row, 16-byte chunks XOR-swizzled by the row).
+  unsigned char* stg = gbase + warp * 4096;
+  const int mw = m0 + warp * 16;  // this warp's first row (warps 0-7 in row order)
+  if (kResid) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float xv = __bfloat162float(v[e]);
-            v[e] = __float2bfloat16_rn((xv - mu_m) * r_m * g[k0 + c + e] + beta[k0 + c + e]);
-          }
+    for (int i = 0; i < 8; ++i) {
+      const int r = 2 * i + (lane >> 4), c = lane & 15;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (mw + r < M)
+        u = *reinterpret_cast<const uint4*>(resid + size_t(mw + r) * N + n0 + c * 8);
+      *reinterpret_cast<uint4*>(stg + r * 256 + ((c ^ (r & 7)) << 4)) = u;
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 bj = *reinterpret_cast<const float2*>(bias + n0 + 8 * j + 2 * quad);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (lane >> 2) + 8 * h;
+      uint32_t* cell = reinterpret_cast<uint32_t*>(stg + r * 256 + ((j ^ (r & 7)) << 4) + quad * 4);
+      float y0 = acc[4 * j + 2 * h] + bj.x, y1 = acc[4 * j + 2 * h + 1] + bj.y;
+      if (kResid) {
+        const uint32_t rv = *cell;
+        y0 = bf16_lo(rv) + y0;
+        y1 = bf16_hi(rv) + y1;
+      }
+      *cell = pack_bf16(y0, y1);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 2 * i + (lane >> 4), c = lane & 15;
+    if (mw + r < M)
+      *reinterpret_cast<uint4*>(out + size_t(mw + r) * N + n0 + c * 8) =
+          *reinterpret_cast<const uint4*>(stg + r * 256 + ((c ^ (r & 7)) << 4));
+  }
+}
+
+// ------------------------------------------------ attention (wgmma, TMA ring)
+
+constexpr int kBQ = 128;  // query rows a block: two warpgroups of 64
+constexpr int kBK = 128;  // keys a tile
+constexpr int kFThreads = 256;
+constexpr int kTileBytes = kBK * kHd * 2;    // 16 KB: a K or V tile, and the Q tile
+constexpr int kStageBytes = 2 * kTileBytes;  // K then V
+constexpr int kStages = 3;
+// The Q tile, the ring and its full / empty barriers. No slack to align by
+// hand: with it two blocks would miss an SM's shared memory by 64 bytes.
+constexpr int kAttnSmem = kTileBytes + kStages * kStageBytes + 64;
+
+// q, k, v come through tensor maps over (64 of the head, T, H or the packed
+// heads, B) with the caller's strides, so one thread asks for a whole tile
+// and rows past T arrive as zeros. t_first says which of T and H has the
+// smaller stride, the order the maps list them in. scale is a power of two
+// (64^-0.5), so scaling the scores is the same arithmetic as scaling q and
+// rounding it to bf16, and q is used as it lies in memory.
+template <int MODE>
+__global__ void __launch_bounds__(kFThreads, 1)
+    attn_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out, int T, long ob,
+             long oh, long ot, float scale, int t_first, uint32_t probe_mask) {
+  constexpr bool kProducts = MODE != 4 && MODE != 5;  // QK^T and PV
+  constexpr bool kRowMax = MODE == 1 || MODE == 5;
+  constexpr bool kRowSum = MODE == 0 || MODE == 1 || MODE == 3 || MODE == 5;  // l += p
+  constexpr bool kProbe = MODE >= 4;
+  constexpr float kLog2e = 1.4426950408889634f;
+
+  // The 128-byte swizzle repeats every 1024 bytes, from which the tiles must
+  // start.
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  unsigned char* gbase = smem_raw;
+  if (base & 1023u) __trap();
+  const uint32_t sQ = base, sRing = base + kTileBytes;
+  const uint32_t bars = sRing + kStages * kStageBytes;  // full[kStages], empty[kStages]
+
+  // The warpgroup index through a shuffle, so that the compiler knows it
+  // uniform across the warp: on a path it takes for divergent it serialises
+  // every wgmma.
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int lane = tid & 31, quad = lane & 3;
+  const int rloc = ((tid >> 5) & 3) * 16 + (lane >> 2);  // this thread's first row in its warpgroup
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int n_kt = (T + kBK - 1) / kBK;
+  const int n_jobs = kRowMax ? 2 * n_kt : n_kt;
+  // A warpgroup whose rows all lie past T has nothing to do.
+  const bool active = q0 + wg * 64 < T;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bars + 8 * st, 1);  // full: the requesting thread's expect_tx arrival
+      // empty: one arrival per warp that reads the stage
+      mbar_init(bars + 8 * (kStages + st), q0 + 64 < T ? 8 : 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_async_proxy();
+  }
+  __syncthreads();
+  if (!active) return;
+
+  // Job j of the ring: the max pass (K only) over every key tile, then the
+  // main pass (K and V). The probes' main pass ends on key tile 0.
+  auto job_tile = [&](int j, bool& main_pass) {
+    main_pass = !kRowMax || j >= n_kt;
+    int kt = (kRowMax && j >= n_kt) ? j - n_kt : j;
+    if (kProbe && main_pass) kt = (kt + 1) % n_kt;
+    return kt;
+  };
+  // Thread 0 asks for job j's tiles (and with job 0 the Q tile).
+  auto request = [&](int j) {
+    bool main_pass;
+    const int kt = job_tile(j, main_pass);
+    const uint32_t full = bars + 8 * (j % kStages), sK = sRing + (j % kStages) * kStageBytes;
+    const int c1 = t_first ? kt * kBK : h, c2 = t_first ? h : kt * kBK;
+    mbar_expect_tx(full, (1 + int(main_pass) + int(j == 0)) * kTileBytes);
+    if (j == 0) tma_load_4d(sQ, &map_q, full, 0, t_first ? q0 : h, t_first ? h : q0, b);
+    tma_load_4d(sK, &map_k, full, 0, c1, c2, b);
+    if (main_pass) tma_load_4d(sK + kTileBytes, &map_v, full, 0, c1, c2, b);
+  };
+  if (tid == 0)
+    for (int j = 0; j < kStages && j < n_jobs; ++j) request(j);
+
+  const uint32_t sQw = sQ + wg * (64 * 128);  // this warpgroup's 64 rows
+  const uint64_t dQ = sw128_desc(sQw, 16, 1024);
+  float s[64], o[32];
+  uint32_t pk[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  uint32_t f0 = 0u, f1 = 0u;  // bits of the probes' fabricated scores, rows rloc and rloc + 8
+  // Scores are q k^T unscaled where the products run; the probes' fabricated
+  // scores are scaled as they are made.
+  const float sl = kProducts ? scale * kLog2e : kLog2e, cap = kProducts ? 70.0f / scale : 70.0f;
+
+  for (int j = 0; j < n_jobs; ++j) {
+    // Once every reading warp is done with job j - 1, its stage takes job
+    // j + kStages - 1; the warpgroups meet nowhere else.
+    if (tid == 0 && j >= 1 && j + kStages - 1 < n_jobs) {
+      mbar_wait(bars + 8 * (kStages + (j - 1) % kStages), ((j - 1) / kStages) & 1);
+      request(j + kStages - 1);
+    }
+    // Thread 0's lanes wait for it: the warp-wide instructions below (wgmma,
+    // shuffles, named barriers) need the whole warp, and the probes without
+    // products have none that would gather it.
+    __syncwarp();
+    mbar_wait(bars + 8 * (j % kStages), (j / kStages) & 1);  // job j has landed
+    bool main_pass;
+    const int kt = job_tile(j, main_pass);
+    const uint32_t sK = sRing + (j % kStages) * kStageBytes, sV = sK + kTileBytes;
+    const bool ragged = kt * kBK + kBK > T;
+    const int col0 = kt * kBK + 2 * quad;  // this thread's first key column of the tile
+
+    // One key tile over its first 16 NS keys: all 128, or 80 where the last
+    // tile holds no more (T = 577 leaves 65), which spares the products and
+    // the softmax of the columns that are masked anyway.
+    auto tile = [&](auto slabs) {
+      constexpr int NS = decltype(slabs)::value;
+      if (kProducts) {
+        const uint64_t dK = sw128_desc(sK, 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kHd / 16; ++kk) {
+          if (NS == 8) wgmma_64x128x16_ss<0>(s, dQ + 2 * kk, dK + 2 * kk, kk > 0);
+          else wgmma_64x80x16_ss(s, dQ + 2 * kk, dK + 2 * kk, kk > 0);
         }
+        wgmma_commit();
+        wgmma_wait<0>();
       } else {
+        if (j == 0) {
+          const int r0 = wg * 64 + rloc, r1 = r0 + 8;
+          f0 = __float_as_uint(scale * __uint_as_float(uint32_t(*reinterpret_cast<const uint16_t*>(
+                                           gbase + sw128_off(r0, 0))) << 16));
+          f1 = __float_as_uint(scale * __uint_as_float(uint32_t(*reinterpret_cast<const uint16_t*>(
+                                           gbase + sw128_off(r1, 0))) << 16));
+        }
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(gbase + (sK - base) + tid * 4);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16_rn(0.0f);
+        for (int i = 0; i < 8 * NS; ++i)
+          s[i] = __uint_as_float(((i & 2) ? f1 : f0) | ((w + i) & probe_mask));
       }
-      *reinterpret_cast<uint4*>(sA + r * kGALd + c) = *reinterpret_cast<uint4*>(v);
-    }
-    // B tile: 32 rows x 128 cols of W (K x N row-major).
-    for (int i = threadIdx.x; i < kGBK * (kGBN / 8); i += kGThreads) {
-      const int r = i / (kGBN / 8), c = (i % (kGBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(sB + r * kGBLd + c) =
-          *reinterpret_cast<const uint4*>(W + size_t(k0 + r) * N + n0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], sA + (wm * 32 + i * 16) * kGALd + kk, kGALd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, sB + kk * kGBLd + wn * 64 + j * 16, kGBLd);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
 
-  float* scr = scratch + warp * 256;
+      if (kRowMax && !main_pass) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 8 * NS; ++i) {
+          const int col = col0 + 8 * (i >> 2) + (i & 1);
+          const float sv = (ragged && col >= T) ? -INFINITY : s[i];
+          if (i & 2) m1 = fmaxf(m1, sv);
+          else m0 = fmaxf(m0, sv);
+        }
+        return;
+      }
+
+      // Weights, rounded to bf16 and packed in place: pair jj holds columns
+      // 8 (jj / 2) + 2 quad + {0, 1} of row rloc (jj even) or rloc + 8 (odd),
+      // which is register jj of the A fragments of P.
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(scr, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m0 + wm * 32 + i * 16 + (e >> 4);
-        const int n = n0 + wn * 64 + j * 16 + (e & 15);
-        if (m < M) {
-          const float y = scr[e] + bias[n];
-          out[size_t(m) * N + n] = __float2bfloat16_rn(
-              kResid ? __bfloat162float(resid[size_t(m) * N + n]) + y : y);
+      for (int jj = 0; jj < 4 * NS; ++jj) {
+        const float mrow = (jj & 1) ? m1 : m0;
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float sv = s[2 * jj + e];
+          if (MODE == 0) p[e] = ex2_biased(fmaf(fminf(sv, cap), sl, 24.0f - 70.0f * kLog2e));
+          else if (MODE == 1 || MODE == 5) p[e] = ex2_biased(fmaf(sv - mrow, sl, 24.0f));
+          else if (MODE == 3 || MODE == 4) p[e] = ex2(sv * sl);
+          else p[e] = sv * scale;
+        }
+        pk[jj] = pack_bf16(p[0], p[1]);
+      }
+      if (ragged) {  // keys at or past T weigh exactly 0
+#pragma unroll
+        for (int jj = 0; jj < 4 * NS; ++jj) {
+          const int col = col0 + 8 * (jj >> 1);
+          if (col + 1 >= T) pk[jj] = col >= T ? 0u : pk[jj] & 0xFFFFu;
         }
       }
-      __syncwarp();
+      if (kRowSum) {
+#pragma unroll
+        for (int jj = 0; jj < 4 * NS; jj += 2) {
+          l0 += bf16_lo(pk[jj]) + bf16_hi(pk[jj]);
+          l1 += bf16_lo(pk[jj + 1]) + bf16_hi(pk[jj + 1]);
+        }
+      }
+      if (kProducts) {
+        const uint64_t dV = sw128_desc(sV, kTileBytes, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NS; ++kk)
+          wgmma_64x64x16_rs(o, pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2], pk[4 * kk + 3],
+                            dV + (2048 >> 4) * kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+    };
+    if (T - kt * kBK <= 80) tile(std::integral_constant<int, 5>{});
+    else tile(std::integral_constant<int, 8>{});
+    if (kRowMax && j == n_kt - 1) {  // the max pass is over: the row's four lanes
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
     }
+    __syncwarp();  // every lane has read what it needs of the stage
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + j % kStages));  // this warp is done with it
+  }
+  __syncwarp();
+  if (kRowSum) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  }
+
+  // Output through this warpgroup's rows of the Q tile (its wgmma reads of
+  // them are done), then 16-byte stores. The probes without products give
+  // the first 64 columns of p.
+  named_barrier(1 + wg, 128);
+#pragma unroll
+  for (int jo = 0; jo < 8; ++jo)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float y0, y1;
+      if (kProducts) {
+        y0 = o[4 * jo + 2 * hh];
+        y1 = o[4 * jo + 2 * hh + 1];
+      } else {
+        y0 = bf16_lo(pk[2 * jo + hh]);
+        y1 = bf16_hi(pk[2 * jo + hh]);
+      }
+      if (kRowSum) {
+        const float l = hh ? l1 : l0;
+        y0 /= l;
+        y1 /= l;
+      }
+      const int r = rloc + 8 * hh;
+      *reinterpret_cast<uint32_t*>(gbase + wg * (64 * 128) + sw128_off(r, jo) + quad * 4) =
+          pack_bf16(y0, y1);
+    }
+  named_barrier(1 + wg, 128);
+  const int t = tid & 127;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = i * 16 + (t >> 3), c = t & 7, row = q0 + wg * 64 + r;
+    if (row < T)
+      *reinterpret_cast<uint4*>(out + b * ob + h * oh + long(row) * ot + c * 8) =
+          *reinterpret_cast<const uint4*>(gbase + wg * (64 * 128) + sw128_off(r, c));
+  }
 }
 
-// ---------------------------------------------------------------- attention
+// Raises a kernel's dynamic shared memory limit to `bytes` once per device
+// (`*configured` remembers the device).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int* configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev == *configured) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *configured = dev;
+  return err;
+}
 
-constexpr int kHd = 64;     // head dim (CLIP ViT-L/14 and its text tower)
+template <int MODE>
+int launch_attn(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* out,
+                int B, int H, int T, const Strides& st, float scale, int grid_x,
+                cudaStream_t stream) {
+  static int configured = -1;  // the device whose limit was raised last, per instantiation
+  cudaError_t err = allow_smem(attn_fwd<MODE>, kAttnSmem, &configured);
+  if (err != cudaSuccess) return int(err);
+  attn_fwd<MODE><<<dim3(grid_x, H, B), kFThreads, kAttnSmem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), T, st.ob, st.oh, st.ot, scale, int(st.t <= st.h), 0u);
+  return int(cudaGetLastError());
+}
+
+// ------------------------------------------------ K4: exact softmax (WMMA)
+
 constexpr int kQT = 64;     // query rows per block
 constexpr int kKT = 64;     // keys per tile
 constexpr int kAWarps = 4;  // 16 query rows each
@@ -215,12 +751,7 @@ constexpr size_t kQBytes = size_t(kQT) * kLd * 2;
 constexpr size_t kKBytes = size_t(kKT) * kLd * 2;
 constexpr size_t kSBytes = size_t(kAWarps) * 16 * kSLd * 4;
 constexpr size_t kPBytes = size_t(kAWarps) * 16 * kLd * 2;
-constexpr size_t kAttnSmem = kQBytes + 2 * kKBytes + kSBytes + kPBytes;
-
-struct Strides {
-  long b, h, t;  // element strides of q/k/v (dim contiguous)
-  long ob, oh, ot;  // element strides of out
-};
+constexpr size_t kExactSmem = kQBytes + 2 * kKBytes + kSBytes + kPBytes;
 
 // Rows [t0, t0 + 64) of one head into a (64 x kLd) tile, zero past T, each
 // element multiplied by `scale` and rounded to bf16 (scale 1 copies).
@@ -267,29 +798,10 @@ __device__ __forceinline__ void scores(const bf16* sQ, const bf16* sK, float* sS
   __syncwarp();
 }
 
-// The bench's floor probes write these scores in place of QK^T: every key
-// column of a query row gets f32(q[row, 0]). Lane L writes columns L and
-// L + 32 of all 16 rows, and reads back a row segment another lane wrote.
-__device__ __forceinline__ void fabricated_scores(const bf16* sQ, float* sS, int warp,
-                                                  int lane) {
-  for (int e = lane; e < 16 * kKT; e += 32) {
-    const int rr = e / kKT, cc = e % kKT;
-    sS[rr * kSLd + cc] = __bfloat162float(sQ[(warp * 16 + rr) * kLd]);
-  }
-  __syncwarp();
-}
-
-template <int MODE>
 __global__ void __launch_bounds__(kAThreads)
-    attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int T, Strides st,
-                float scale, int causal) {
-  constexpr bool kProducts = MODE != 4 && MODE != 5;  // QK^T and PV
-  constexpr bool kRowMax = MODE == 1 || MODE == 2 || MODE == 5;
-  constexpr bool kRowSum = MODE == 0 || MODE == 1 || MODE == 3 || MODE == 5;  // l += p
-  constexpr bool kProbe = MODE >= 4;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+    attn_exact(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+               bf16* __restrict__ out, int T, Strides st, float scale, int causal) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];  // one declaration, one alignment
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sK = reinterpret_cast<bf16*>(smem_raw + kQBytes);
   bf16* sV = reinterpret_cast<bf16*>(smem_raw + kQBytes + kKBytes);
@@ -309,110 +821,143 @@ __global__ void __launch_bounds__(kAThreads)
   if (causal) n_kt = min(n_kt, int(blockIdx.x) + 1);  // later keys are all masked
 
   float m = -INFINITY, l = 0.0f;
-  if (kRowMax) {  // exact row max
-    for (int kt = 0; kt < n_kt; ++kt) {
-      __syncthreads();
-      load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
-      __syncthreads();
-      if (kProducts) scores(sQ, sK, sS, warp);
-      else fabricated_scores(sQ, sS, warp, lane);
-      for (int c = c0; c < c0 + 32; ++c) {
-        const int key = kt * kKT + c;
-        if (key < T && (!causal || key <= qrow)) m = fmaxf(m, sS[r * kSLd + c]);
-      }
-      __syncwarp();
+  for (int kt = 0; kt < n_kt; ++kt) {  // exact row max
+    __syncthreads();
+    load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
+    __syncthreads();
+    scores(sQ, sK, sS, warp);
+    for (int c = c0; c < c0 + 32; ++c) {
+      const int key = kt * kKT + c;
+      if (key < T && (!causal || key <= qrow)) m = fmaxf(m, sS[r * kSLd + c]);
     }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    __syncwarp();
   }
-  if (MODE == 2) {  // f32 row sum of exp(s - m)
-    for (int kt = 0; kt < n_kt; ++kt) {
-      __syncthreads();
-      load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
-      __syncthreads();
-      scores(sQ, sK, sS, warp);
-      for (int c = c0; c < c0 + 32; ++c) {
-        const int key = kt * kKT + c;
-        if (key < T && (!causal || key <= qrow)) l += expf(sS[r * kSLd + c] - m);
-      }
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  for (int kt = 0; kt < n_kt; ++kt) {  // f32 row sum of exp(s - m)
+    __syncthreads();
+    load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
+    __syncthreads();
+    scores(sQ, sK, sS, warp);
+    for (int c = c0; c < c0 + 32; ++c) {
+      const int key = kt * kKT + c;
+      if (key < T && (!causal || key <= qrow)) l += expf(sS[r * kSLd + c] - m);
     }
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
   }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[kHd / 16];
 #pragma unroll
   for (int n = 0; n < kHd / 16; ++n) wmma::fill_fragment(oacc[n], 0.0f);
-  for (int it = 0; it < n_kt; ++it) {
-    const int kt = kProbe ? (it + 1) % n_kt : it;  // the probes end on key tile 0
+  for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
     load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
     load_tile(sV, v + in_off, st.t, kt * kKT, T, 1.0f);
     __syncthreads();
-    if (kProducts) scores(sQ, sK, sS, warp);
-    else fabricated_scores(sQ, sS, warp, lane);
+    scores(sQ, sK, sS, warp);
     for (int c = c0; c < c0 + 32; ++c) {
       const int key = kt * kKT + c;
-      const float s = sS[r * kSLd + c];
       float p = 0.0f;
-      if (key < T && (!causal || key <= qrow)) {
-        if (MODE == 0) {
-          p = expf(fminf(s, 70.0f) - 70.0f);
-        } else if (MODE == 1 || MODE == 5) {
-          p = expf(s - m);
-        } else if (MODE == 2) {
-          p = expf(s - m) / l;
-        } else if (MODE == 3 || MODE == 4) {
-          p = expf(s);
-        } else {
-          p = s;
-        }
-        p = __bfloat162float(__float2bfloat16_rn(p));
-      }
-      if (kRowSum) l += p;
+      if (key < T && (!causal || key <= qrow)) p = expf(sS[r * kSLd + c] - m) / l;
       sP[r * kLd + c] = __float2bfloat16_rn(p);
     }
     __syncwarp();
-    if (kProducts) {
 #pragma unroll
-      for (int kk = 0; kk < kKT; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sP + kk, kLd);
+    for (int kk = 0; kk < kKT; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, sP + kk, kLd);
 #pragma unroll
-        for (int n = 0; n < kHd / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, sV + kk * kLd + n * 16, kLd);
-          wmma::mma_sync(oacc[n], a, bv, oacc[n]);
-        }
+      for (int n = 0; n < kHd / 16; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+        wmma::load_matrix_sync(bv, sV + kk * kLd + n * 16, kLd);
+        wmma::mma_sync(oacc[n], a, bv, oacc[n]);
       }
     }
   }
-  if (kRowSum) l += __shfl_xor_sync(0xffffffffu, l, 1);
 
-  if (kProducts) {
 #pragma unroll
-    for (int n = 0; n < kHd / 16; ++n)
-      wmma::store_matrix_sync(sS + n * 16, oacc[n], kSLd, wmma::mem_row_major);
-    __syncwarp();
-  }
+  for (int n = 0; n < kHd / 16; ++n)
+    wmma::store_matrix_sync(sS + n * 16, oacc[n], kSLd, wmma::mem_row_major);
+  __syncwarp();
   if (qrow < T) {
     bf16* orow = out + b * st.ob + h * st.oh + long(qrow) * st.ot;
-    for (int c = c0; c < c0 + 32; ++c) {
-      // The probes without products give the first 64 columns of p.
-      const float ov = kProducts ? sS[r * kSLd + c] : __bfloat162float(sP[r * kLd + c]);
-      orow[c] = __float2bfloat16_rn(kRowSum ? ov / l : ov);
-    }
+    for (int c = c0; c < c0 + 32; ++c) orow[c] = __float2bfloat16_rn(sS[r * kSLd + c]);
   }
 }
 
-template <int MODE>
-int launch_attn(const void* q, const void* k, const void* v, void* out, int B, int H, int T,
-                const Strides& st, float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kAttnSmem));
+// ------------------------------------------------------------ tensor maps
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; the library links only the
+// runtime, so the entry point is fetched through it.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows x cols) bf16 matrix cut into 128-byte-swizzled boxes of
+// box_rows x 64 columns; boxes past the edge are zero-filled.
+bool make_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+              uint32_t box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// One head's rows of q, k or v as a 4-d map: 64 of the head (contiguous), then
+// T and the heads in the order of their strides, then the batch; boxes of 128
+// rows of one head, 128-byte swizzled, zero-filled past T. Strides in
+// elements, multiples of 8.
+bool make_head_map(CUtensorMap* map, const void* ptr, int B, int H, int T, const Strides& st) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const bool t_first = st.t <= st.h;
+  const cuuint64_t dims[4] = {kHd, cuuint64_t(t_first ? T : H), cuuint64_t(t_first ? H : T),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(t_first ? st.t : st.h) * 2,
+                                 cuuint64_t(t_first ? st.h : st.t) * 2, cuuint64_t(st.b) * 2};
+  const cuuint32_t box[4] = {kHd, cuuint32_t(t_first ? 128 : 1), cuuint32_t(t_first ? 1 : 128), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <bool kResid>
+int launch_gemm(const void* a, const void* w, const void* bias, const void* resid, int M, int K,
+                int N, void* out, cudaStream_t stream) {
+  if (K % kGK || N % kGN) return int(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_w;
+  if (!make_map(&map_a, a, M, K, kGM) || !make_map(&map_w, w, K, N, kGK))
+    return int(cudaErrorInvalidValue);
+  const float* bp = static_cast<const float*>(bias);
+  const bf16* rp = static_cast<const bf16*>(resid);
+  bf16* op = static_cast<bf16*>(out);
+  constexpr int smem = kGStages * kGStage + 16 * kGStages;  // the ring and its barriers
+  static int configured = -1;
+  cudaError_t err = allow_smem(gemm_tma<kResid>, smem, &configured);
   if (err != cudaSuccess) return int(err);
-  dim3 grid((T + kQT - 1) / kQT, H, B);
-  attn_kernel<MODE><<<grid, kAThreads, kAttnSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), T, st, scale, causal);
+  dim3 grid(N / kGN, (M + kGM - 1) / kGM);
+  gemm_tma<kResid><<<grid, kGThreads, smem, stream>>>(map_a, map_w, bp, rp, M, K, N, op);
   return int(cudaGetLastError());
 }
 
@@ -420,57 +965,68 @@ int launch_attn(const void* q, const void* k, const void* v, void* out, int B, i
 
 // Attention over heads of 64 addressed by element strides. mode 0 clamp,
 // 1 maxsub, 2 exact softmax, 3 nomax, 4 / 5 / 6 the exp-only, softmax-only
-// and matmul-only probes (see the note at the top).
+// and matmul-only probes (see the note at the top). grid_x, stages and smem
+// are the launch geometry ops/attention.py::launch_geometry computes: query
+// tiles, ring stages (unused by mode 2) and dynamic shared memory in bytes.
 extern "C" int d2r_attention(const void* q, const void* k, const void* v, void* out, int B,
                              int H, int T, long sb, long sh, long st, long osb, long osh,
-                             long ost, float scale, int causal, int mode, void* stream) {
+                             long ost, float scale, int causal, int mode, int grid_x, int stages,
+                             int smem, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0) return 0;
   const Strides s{sb, sh, st, osb, osh, ost};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (mode == 2) {
+    if (grid_x * kQT < T || smem != int(kExactSmem)) return int(cudaErrorInvalidValue);
+    static int configured = -1;
+    cudaError_t err = allow_smem(attn_exact, smem, &configured);
+    if (err != cudaSuccess) return int(err);
+    attn_exact<<<dim3(grid_x, H, B), kAThreads, smem, cs>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(out), T, s, scale, causal);
+    return int(cudaGetLastError());
+  }
+  int exponent = 0;
+  if (causal || grid_x * kBQ < T || stages != kStages || smem != kAttnSmem ||
+      frexpf(scale, &exponent) != 0.5f)  // the kernel scales scores, exact for powers of two
+    return int(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  if (!make_head_map(&mq, q, B, H, T, s) || !make_head_map(&mk, k, B, H, T, s) ||
+      !make_head_map(&mv, v, B, H, T, s))
+    return int(cudaErrorInvalidValue);
   switch (mode) {
-    case 0: return launch_attn<0>(q, k, v, out, B, H, T, s, scale, causal, cs);
-    case 1: return launch_attn<1>(q, k, v, out, B, H, T, s, scale, causal, cs);
-    case 2: return launch_attn<2>(q, k, v, out, B, H, T, s, scale, causal, cs);
-    case 3: return launch_attn<3>(q, k, v, out, B, H, T, s, scale, causal, cs);
-    case 4: return launch_attn<4>(q, k, v, out, B, H, T, s, scale, causal, cs);
-    case 5: return launch_attn<5>(q, k, v, out, B, H, T, s, scale, causal, cs);
-    case 6: return launch_attn<6>(q, k, v, out, B, H, T, s, scale, causal, cs);
+    case 0: return launch_attn<0>(mq, mk, mv, out, B, H, T, s, scale, grid_x, cs);
+    case 1: return launch_attn<1>(mq, mk, mv, out, B, H, T, s, scale, grid_x, cs);
+    case 3: return launch_attn<3>(mq, mk, mv, out, B, H, T, s, scale, grid_x, cs);
+    case 4: return launch_attn<4>(mq, mk, mv, out, B, H, T, s, scale, grid_x, cs);
+    case 5: return launch_attn<5>(mq, mk, mv, out, B, H, T, s, scale, grid_x, cs);
+    case 6: return launch_attn<6>(mq, mk, mv, out, B, H, T, s, scale, grid_x, cs);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
-// qkv (M x N) = bf16(bf16(LN(x)) @ W + bias) for x (M x K); mu/rstd are
-// (M,) f32 scratch the caller allocates.
+// qkv (M x N) = bf16(bf16(LN(x)) @ W + bias) for x (M x K); xn is (M x K)
+// bf16 scratch the caller allocates (the normalised rows).
 extern "C" int d2r_ln_qkv(const void* x, const void* g, const void* beta, const void* w,
-                          const void* bias, int M, int K, int N, float eps, void* mu,
-                          void* rstd, void* qkv, void* stream) {
+                          const void* bias, int M, int K, int N, float eps, void* xn, void* qkv,
+                          void* stream) {
   if (M <= 0) return 0;
+  if (K % kGK || N % kGN) return int(cudaErrorInvalidValue);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  ln_stats<<<(M + 7) / 8, 256, 0, cs>>>(static_cast<const bf16*>(x), M, K, eps,
-                                        static_cast<float*>(mu), static_cast<float*>(rstd));
+  ln_rows<<<(M + 7) / 8, 256, 0, cs>>>(static_cast<const bf16*>(x), static_cast<const float*>(g),
+                                       static_cast<const float*>(beta), M, K, eps,
+                                       static_cast<bf16*>(xn));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  dim3 grid(N / kGBN, (M + kGBM - 1) / kGBM);
-  gemm_bf16<true, false><<<grid, kGThreads, 0, cs>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(mu),
-      static_cast<const float*>(rstd), static_cast<const float*>(g),
-      static_cast<const float*>(beta), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), nullptr, M, K, N, static_cast<bf16*>(qkv));
-  return int(cudaGetLastError());
+  return launch_gemm<false>(xn, w, bias, nullptr, M, K, N, qkv, cs);
 }
 
 // out (M x N) = bf16(f32(resid) + (a @ W + bias)) for a (M x K) bf16, W
 // (K x N) bf16, bias (N,) f32, resid (M x N) bf16: the out-projection, bias
-// and residual of the bench's v13 body. K % 32 == 0 and N % 128 == 0.
+// and residual of the bench's v13 body. K % 64 == 0 and N % 128 == 0.
 extern "C" int d2r_gemm_bias_residual(const void* a, const void* w, const void* bias,
                                       const void* resid, int M, int K, int N, void* out,
                                       void* stream) {
   if (M <= 0) return 0;
-  if (K % kGBK || N % kGBN) return int(cudaErrorInvalidValue);
-  dim3 grid(N / kGBN, (M + kGBM - 1) / kGBM);
-  gemm_bf16<false, true><<<grid, kGThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), nullptr, nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<const bf16*>(resid), M, K, N, static_cast<bf16*>(out));
-  return int(cudaGetLastError());
+  return launch_gemm<true>(a, w, bias, resid, M, K, N, out,
+                           static_cast<cudaStream_t>(stream));
 }

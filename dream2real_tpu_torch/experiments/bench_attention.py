@@ -7,7 +7,11 @@ Times the production head-split attention (``ops.attention.mha``, K9)
 against the bench's variants at the scoring shape (B 32, H 16, T 577, D 64,
 bf16), then the projection-layout variants, then whole attention sub-blocks
 and transformer blocks. The floor probes (exp only, softmax only, matmul
-only) break an attention launch's time into its parts.
+only) are modes of the kernel the main path runs (wgmma products, scores and
+weights in registers, a ring of asynchronously loaded key tiles) and break
+its launch time into parts: matmul only keeps both products and the loads,
+exp only and softmax only keep the loads and the exponentials on scores
+made in registers from ``q[row, 0]``.
 
 What each variant launches on the card (``csrc/attention.cu``):
 

@@ -5,7 +5,8 @@ Each wrapper takes its plain PyTorch version for CPU tensors and launches
 ``csrc/attention.cu`` for CUDA tensors (or raises):
 
 - ``mha_ln_qkv`` (K2): LN1 + qkv projection + bidirectional attention. On
-  the card: the LN-fused qkv GEMM kernel, then the K3 attention kernel.
+  the card: ``ln_qkv`` (an LN pass that writes bf16(LN(x)), then the TMA +
+  wgmma GEMM with the bias epilogue), then the K3 attention kernel.
 - ``mha_qkv`` (K3): attention on a projection-layout qkv (B, T, 3W).
 - ``mha(causal=True)`` (K4): causal head-split attention, text tower.
 - ``mha(causal=False)`` (K9): bidirectional head-split attention with exact
@@ -15,6 +16,13 @@ Each wrapper takes its plain PyTorch version for CPU tensors and launches
   and ``proj_residual``: the out-projection GEMM with its bias + residual
   epilogue; both serve the attention bench
   (``experiments/bench_attention.py``).
+
+The attention kernel (every mode but ``exact``) works on blocks of 128 query
+rows, two warpgroups of 64, against key tiles of 128 that TMA brings into a
+ring in shared memory; scores and weights stay in registers between its two
+wgmma products. ``launch_geometry`` is where its
+grid, ring depth and shared memory are decided; the C launch function takes
+them from there. K4 keeps the 64 x 64 WMMA tile loop.
 
 Softmax: by default the constant clamp ``exp(min(s, 70) - 70)`` (shift-
 invariant, identical to max-subtraction unless a logit exceeds 70);
@@ -52,15 +60,64 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
         )
 
 
+# The attention kernel's tiles: query rows a block, keys a tile, bytes of one
+# 128 x 64 bf16 tile (Q, K or V), and the most dynamic shared memory a block
+# can ask for on an H100. Two blocks of a 3-stage ring fit one SM (228 KB less
+# 1 KB a block) with 1,920 bytes to spare.
+Q_ROWS, KEY_TILE, TILE_BYTES = 128, 128, 128 * 64 * 2
+STAGES, BARRIER_BYTES = 3, 64  # the ring of K / V tiles and its full / empty barriers
+SMEM_LIMIT = 232_448
+# K4's kernel: 64 query rows a block, and its fixed buffers (Q, K, V tiles of
+# 64 x 72 bf16, 4 x 16 x 68 f32 scores, 4 x 16 x 72 bf16 weights).
+EXACT_Q_ROWS, EXACT_SMEM = 64, 3 * 64 * 72 * 2 + 4 * 16 * 68 * 4 + 4 * 16 * 72 * 2
+
+
+def launch_geometry(T: int, mode: int) -> dict:
+    """Grid, ring depth and dynamic shared memory of an attention launch over
+    T tokens in ``mode`` (a value of ``MODES``). ``grid_x`` blocks of
+    ``q_rows`` query rows cover T; ``n_key_tiles`` tiles of ``key_tile`` keys
+    cover T; the ring holds ``stages`` stages of one K and one V tile (a pass
+    for the row max doubles the tile loads, ``n_jobs``); ``smem_bytes`` is
+    the Q tile, the ring and its barriers. The exact mode (K4) has no
+    ring."""
+    if T < 1:
+        raise ValueError(f"attention needs at least one token, got T = {T}")
+    if mode == MODES["exact"]:
+        return {"q_rows": EXACT_Q_ROWS, "key_tile": 64, "grid_x": -(-T // EXACT_Q_ROWS),
+                "n_key_tiles": -(-T // 64), "n_jobs": 3 * -(-T // 64), "stages": 0,
+                "smem_bytes": EXACT_SMEM}
+    n_kt = -(-T // KEY_TILE)
+    n_jobs = 2 * n_kt if mode in (MODES["maxsub"], MODES["probe_softmax"]) else n_kt
+    return {"q_rows": Q_ROWS, "key_tile": KEY_TILE, "grid_x": -(-T // Q_ROWS),
+            "n_key_tiles": n_kt, "n_jobs": n_jobs, "stages": STAGES,
+            "smem_bytes": TILE_BYTES + STAGES * 2 * TILE_BYTES + BARRIER_BYTES}
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_ARGTYPES = {
+    "d2r_attention": [_P] * 4 + [_I] * 3 + [_L] * 6 + [ctypes.c_float] + [_I] * 5 + [_P],
+    "d2r_ln_qkv": [_P] * 5 + [_I] * 3 + [ctypes.c_float] + [_P] * 3,
+    "d2r_gemm_bias_residual": [_P] * 4 + [_I] * 3 + [_P] * 2,
+}
+_FNS: dict = {}
+
+
+def _fn(name: str):
+    """The launch function ``name`` of csrc/attention.cu, typed once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load("attention"), name)
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
 def _attention_launch(q_ptr, k_ptr, v_ptr, out, B, H, T, strides, out_strides, scale,
                       causal: bool, mode: int, dev) -> None:
-    lib = build.load("attention")
-    fn = lib.d2r_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_long] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(q_ptr, k_ptr, v_ptr, build.ptr(out), B, H, T, *strides, *out_strides,
-             float(scale), int(causal), mode, build.stream_ptr(dev))
+    geo = launch_geometry(T, mode)
+    err = _fn("d2r_attention")(
+        q_ptr, k_ptr, v_ptr, build.ptr(out), B, H, T, *strides, *out_strides, float(scale),
+        int(causal), mode, geo["grid_x"], geo["stages"], geo["smem_bytes"], build.stream_ptr(dev))
     build.check(err, "attention")
 
 
@@ -136,6 +193,42 @@ def mha_ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b, n_heads: int, maxsub: bool) -> t
     return mha_qkv_plain(qkv, n_heads, maxsub)
 
 
+def ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b) -> torch.Tensor:
+    """Plain version of K2's first half: bf16(bf16(LN1(x)) @ Wqkv + b)."""
+    xn = layer_norm(x.to(BF16), ln_g.to(F32), ln_b.to(F32))
+    return (dot_exact(xn, wqkv) + bqkv.to(F32)).to(BF16)
+
+
+def ln_qkv(x, wqkv, bqkv, ln_g, ln_b) -> torch.Tensor:
+    """K2's first half: x (B, T, W) bf16 -> qkv (B, T, N) bf16 =
+    bf16(bf16(LN1(x)) @ wqkv + bqkv). On the card an LN pass writes the
+    normalised rows in bf16 (the reference's rounding place), then the TMA +
+    wgmma GEMM multiplies them. W % 64 == 0 and N % 128 == 0."""
+    if not x.is_cuda:
+        return ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b)
+    B, T, W = x.shape
+    dev = x.device
+    N = wqkv.shape[1]
+    if W % 64 or N % 128:
+        raise ValueError(f"ln_qkv: unsupported widths {W} -> {N}")
+    _check("ln_qkv: x", x, BF16, (B, T, W), dev)
+    _check("ln_qkv: wqkv", wqkv, BF16, (W, N), dev)
+    _check("ln_qkv: bqkv", bqkv, F32, (N,), dev)
+    _check("ln_qkv: ln_g", ln_g, F32, (W,), dev)
+    _check("ln_qkv: ln_b", ln_b, F32, (W,), dev)
+    qkv = torch.empty(B, T, N, dtype=BF16, device=dev)
+    xn = torch.empty(B, T, W, dtype=BF16, device=dev)
+    err = _fn("d2r_ln_qkv")(
+        build.ptr(x), build.ptr(ln_g), build.ptr(ln_b), build.ptr(wqkv), build.ptr(bqkv),
+        B * T, W, N, 1e-5, build.ptr(xn), build.ptr(qkv), build.stream_ptr(dev))
+    build.check(err, "ln_qkv")
+    ln_qkv.launches += 1
+    return qkv
+
+
+ln_qkv.launches = 0
+
+
 def mha_ln_qkv(x, wqkv, bqkv, ln_g, ln_b, n_heads: int,
                maxsub: bool | None = None) -> torch.Tensor:
     """K2 wrapper. x (B, T, W) bf16 residual stream; wqkv (W, 3W) bf16;
@@ -145,26 +238,10 @@ def mha_ln_qkv(x, wqkv, bqkv, ln_g, ln_b, n_heads: int,
         maxsub = _maxsub()
     if not x.is_cuda:
         return mha_ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b, n_heads, maxsub)
-    B, T, W = x.shape
-    dev = x.device
-    if W != n_heads * _HD or W % 32 or (3 * W) % 128:
+    W = x.shape[-1]
+    if x.dim() != 3 or W != n_heads * _HD or tuple(wqkv.shape) != (W, 3 * W):
         raise ValueError(f"mha_ln_qkv: unsupported width {W} / {n_heads} heads")
-    _check("mha_ln_qkv: x", x, BF16, (B, T, W), dev)
-    _check("mha_ln_qkv: wqkv", wqkv, BF16, (W, 3 * W), dev)
-    _check("mha_ln_qkv: bqkv", bqkv, F32, (3 * W,), dev)
-    _check("mha_ln_qkv: ln_g", ln_g, F32, (W,), dev)
-    _check("mha_ln_qkv: ln_b", ln_b, F32, (W,), dev)
-    M = B * T
-    qkv = torch.empty(B, T, 3 * W, dtype=BF16, device=dev)
-    stats = torch.empty(2, M, dtype=F32, device=dev)
-    fn = build.load("attention").d2r_ln_qkv
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] + [
-        ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    err = fn(build.ptr(x), build.ptr(ln_g), build.ptr(ln_b), build.ptr(wqkv), build.ptr(bqkv),
-             M, W, 3 * W, 1e-5, build.ptr(stats[0]), build.ptr(stats[1]), build.ptr(qkv),
-             build.stream_ptr(dev))
-    build.check(err, "ln_qkv")
+    qkv = ln_qkv(x, wqkv, bqkv, ln_g, ln_b)
     mha_ln_qkv.launches += 1
     return mha_qkv(qkv, n_heads, maxsub)
 
@@ -256,18 +333,16 @@ def proj_residual(a: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
     B, T, W = a.shape
     dev = a.device
     N = wo.shape[1]
-    if W % 32 or N % 128:
+    if W % 64 or N % 128:
         raise ValueError(f"proj_residual: unsupported widths {W} -> {N}")
     _check("proj_residual: a", a, BF16, (B, T, W), dev)
     _check("proj_residual: wo", wo, BF16, (W, N), dev)
     _check("proj_residual: bo", bo, F32, (N,), dev)
     _check("proj_residual: x", x, BF16, (B, T, N), dev)
     out = torch.empty(B, T, N, dtype=BF16, device=dev)
-    fn = build.load("attention").d2r_gemm_bias_residual
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(build.ptr(a), build.ptr(wo), build.ptr(bo), build.ptr(x), B * T, W, N,
-             build.ptr(out), build.stream_ptr(dev))
+    err = _fn("d2r_gemm_bias_residual")(
+        build.ptr(a), build.ptr(wo), build.ptr(bo), build.ptr(x), B * T, W, N, build.ptr(out),
+        build.stream_ptr(dev))
     build.check(err, "gemm_bias_residual")
     proj_residual.launches += 1
     return out

@@ -28,7 +28,8 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32)) if isinstance(x, jnp.ndarray) else x.float().numpy()
 
 
-@pytest.mark.parametrize("T", [17, 37])
+# 65 and 129: one row past the card kernel's 64-row warpgroups and 128-key tiles.
+@pytest.mark.parametrize("T", [17, 37, 65, 129])
 @pytest.mark.parametrize("maxsub", ["0", "1"])
 def test_mha_qkv_plain_matches_pallas(T, maxsub, monkeypatch):
     monkeypatch.setenv("D2R_ATTN_MAXSUB", maxsub)
@@ -40,7 +41,7 @@ def test_mha_qkv_plain_matches_pallas(T, maxsub, monkeypatch):
     np.testing.assert_allclose(_np(out), _np(ref), **TOL)
 
 
-@pytest.mark.parametrize("T", [17, 37])
+@pytest.mark.parametrize("T", [17, 37, 65, 129])
 @pytest.mark.parametrize("maxsub", ["0", "1"])
 def test_mha_ln_qkv_plain_matches_pallas(T, maxsub, monkeypatch):
     monkeypatch.setenv("D2R_ATTN_MAXSUB", maxsub)
@@ -67,7 +68,7 @@ def test_mha_causal_plain_matches_pallas(T):
     np.testing.assert_allclose(_np(out), _np(ref), **TOL)
 
 
-@pytest.mark.parametrize("T", [45, 64])
+@pytest.mark.parametrize("T", [45, 64, 65, 129])
 def test_mha_bidirectional_plain_matches_pallas(T, capsys):
     """K9: mha(causal=False) against the reference's _attn_kernel2, with T a
     multiple of 8 and not (the reference pads queries to 8 and keys to 128
@@ -93,4 +94,47 @@ def test_k9_not_ported_and_cpu_launches_nothing():
     assert tatt.proj_residual(x[0], torch.zeros(16, 16, dtype=torch.bfloat16), torch.zeros(16),
                               x[0]).shape == x[0].shape
     assert tatt.mha_qkv.launches == 0 and tatt.mha_ln_qkv.launches == 0 and tatt.mha.launches == 0
-    assert tatt.proj_residual.launches == 0
+    assert tatt.proj_residual.launches == 0 and tatt.ln_qkv.launches == 0
+
+
+@pytest.mark.parametrize("mode", sorted(tatt.MODES))
+def test_launch_geometry_covers_every_length(mode):
+    """The attention launch geometry as a pure function: for every T from 1
+    to 700 the query blocks and the key tiles cover T without a spare tile,
+    the ring has 3 stages, and the dynamic
+    shared memory holds the Q tile, the ring and its barriers within
+    what a block can ask for on an H100."""
+    m = tatt.MODES[mode]
+    for T in range(1, 701):
+        geo = tatt.launch_geometry(T, m)
+        assert (geo["grid_x"] - 1) * geo["q_rows"] < T <= geo["grid_x"] * geo["q_rows"]
+        assert (geo["n_key_tiles"] - 1) * geo["key_tile"] < T <= geo["n_key_tiles"] * geo["key_tile"]
+        assert geo["smem_bytes"] <= tatt.SMEM_LIMIT == 232_448
+        if mode == "exact":
+            assert (geo["q_rows"], geo["stages"], geo["smem_bytes"]) == (64, 0, tatt.EXACT_SMEM)
+            continue
+        two_pass = mode in ("maxsub", "probe_softmax")
+        assert geo["n_jobs"] == geo["n_key_tiles"] * (2 if two_pass else 1)
+        assert geo["stages"] == 3 and geo["q_rows"] == 128 and geo["key_tile"] == 128
+        assert geo["smem_bytes"] == (1 + 2 * geo["stages"]) * 128 * 64 * 2 + 64
+    with pytest.raises(ValueError):
+        tatt.launch_geometry(0, m)
+
+
+@pytest.mark.parametrize("mode,T", [("clamp", 577), ("maxsub", 65), ("exact", 77)])
+def test_launch_hands_the_geometry_to_the_c_side(mode, T, monkeypatch):
+    """_attention_launch passes launch_geometry's grid, stages and shared
+    memory to d2r_attention, after the strides and before the stream."""
+    seen = []
+    monkeypatch.setattr(tatt, "_fn", lambda name: lambda *a: seen.append((name, a)) or 0)
+    monkeypatch.setattr(tatt.build, "stream_ptr", lambda dev: "stream")
+    out = torch.zeros(1)
+    tatt._attention_launch(1, 2, 3, out, 2, 16, T, (10, 20, 30), (40, 50, 60), 0.125,
+                           mode == "exact", tatt.MODES[mode], "dev")
+    (name, args), = seen
+    geo = tatt.launch_geometry(T, tatt.MODES[mode])
+    assert name == "d2r_attention"
+    assert args[:3] == (1, 2, 3) and args[3].value == out.data_ptr()
+    assert args[4:] == (2, 16, T, 10, 20, 30, 40, 50, 60, 0.125, int(mode == "exact"),
+                        tatt.MODES[mode], geo["grid_x"], geo["stages"], geo["smem_bytes"], "stream")
+    assert len(args) == len(tatt._ARGTYPES["d2r_attention"])

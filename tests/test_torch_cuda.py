@@ -78,11 +78,38 @@ def test_attention_kernels_match_plain(dev, maxsub, monkeypatch):
 
 
 def test_wrappers_reject_bad_inputs(dev):
-    qkv = torch.zeros(2, 10, 3 * 96, dtype=torch.bfloat16, device=dev)
+    bf = torch.bfloat16
+    qkv = torch.zeros(2, 10, 3 * 96, dtype=bf, device=dev)
     with pytest.raises(ValueError):
         att.mha_qkv(qkv, 3)  # heads of 32: the kernel takes 64
     with pytest.raises(ValueError):
         att.mha_qkv(torch.zeros(2, 10, 3 * 64, device=dev), 1)  # f32, not bf16
+    with pytest.raises(ValueError):  # a transposed view: not contiguous
+        att.mha_qkv(torch.zeros(2, 3 * 64, 10, dtype=bf, device=dev).transpose(1, 2), 1)
+    q = torch.zeros(2, 3, 10, 64, dtype=bf, device=dev)
+    with pytest.raises(ValueError):
+        att.mha(q, q[:, :, :9], q)  # k of another length
+    with pytest.raises(ValueError):
+        att.mha(q, q.cpu(), q)  # k on another device
+    with pytest.raises(ValueError):
+        att.mha(q[..., :32].contiguous(), q[..., :32].contiguous(), q[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        att.head_attention(q.cpu(), q.cpu(), q.cpu(), "clamp")  # the bare launch needs the card
+    x = torch.zeros(2, 10, 128, dtype=bf, device=dev)
+    w, b3 = torch.zeros(128, 384, dtype=bf, device=dev), torch.zeros(384, device=dev)
+    g = torch.ones(128, device=dev)
+    with pytest.raises(ValueError):
+        att.mha_ln_qkv(x, w, b3, g, g, 4)  # heads of 32
+    with pytest.raises(ValueError):
+        att.mha_ln_qkv(x, w, b3, g.to(bf), g, 2)  # ln_g in bf16
+    with pytest.raises(ValueError):
+        att.mha_ln_qkv(x, w.t().contiguous().t(), b3, g, g, 2)  # wqkv not contiguous
+    with pytest.raises(ValueError):
+        att.ln_qkv(x[..., :96].contiguous(), w[:96].contiguous(), b3, g[:96], g[:96])  # K % 64
+    with pytest.raises(ValueError):
+        att.proj_residual(x, w, b3, x)  # the residual is not (B, T, N)
+    with pytest.raises(ValueError):
+        att.proj_residual(x, w.float(), b3, torch.zeros(2, 10, 384, dtype=bf, device=dev))
 
 
 def test_split_and_fused_attention_paths_agree(dev, monkeypatch):
@@ -271,6 +298,100 @@ def test_bench_projection_and_fused_blocks_match_plain(dev):
         assert float(((got - ref).abs() - 2**-7 * ref.abs()).max()) <= atol
     with pytest.raises(ValueError):
         att.proj_residual(a, wo[:, :100].contiguous(), bo[:100], x)  # N not a multiple of 128
+
+
+def _as_projection(q, k, v):
+    """Head-split (B, H, T, D) q, k, v -> the projection layout (B, T, 3HD)."""
+    B, H, T, D = q.shape
+    return torch.cat([t.permute(0, 2, 1, 3).reshape(B, T, H * D) for t in (q, k, v)],
+                     dim=-1).contiguous()
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 577, 584])
+def test_attention_kernel_ragged_lengths(dev, T):
+    """The wgmma attention kernel in modes clamp, maxsub, nomax and the three
+    probes, in the projection and the head-split layout, at lengths around
+    its 64-row warpgroups and 128-key tiles (B 2, H 16)."""
+    from dream2real_tpu_torch.experiments import bench_attention as ba
+
+    B, H, D = 2, 16, 64
+    gen = torch.Generator(device=dev).manual_seed(10 + T)
+    q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    qkv = _as_projection(q, k, v)
+    _close(att.mha(q, k, v), att.mha_plain(q, k, v), "maxsub, head-split")
+    _close(ba.mha_v2_nomax(q, k, v), ba.mha_x1_plain(q, k, v, nomax=True), "nomax, head-split")
+    for maxsub in (False, True):
+        ref = att.mha_qkv_plain(qkv, H, maxsub)
+        _close(att.mha_qkv(qkv, H, maxsub), ref, f"projection, maxsub={maxsub}")
+        mode = "maxsub" if maxsub else "clamp"
+        got = att.head_attention(q, k, v, mode).permute(0, 2, 1, 3).reshape(B, T, H * D)
+        _close(got, ref, f"{mode}, head-split")
+    if T + (-T % 8) >= D:  # the fabricated probes give p[:, :64]
+        for name in ba.PROBES:
+            got, ref = ba.probe(name)(q, k, v).float(), ba.probe_plain(name, q, k, v).float()
+            if name == "matmul_only":
+                assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+            else:
+                _close(got, ref, name)
+
+
+@pytest.mark.parametrize("T", [1, 65, 128, 577])
+@pytest.mark.parametrize("mode", ["clamp", "maxsub", "nomax", "exact"])
+def test_keys_past_T_weigh_exactly_zero(dev, T, mode):
+    """Rows past T in a longer buffer (keys of 100, values of 1e4) leave no
+    trace: the launch over the padded buffers' strides equals the launch on
+    the unpadded tensors bit for bit."""
+    from dream2real_tpu_torch import build
+
+    B, H, D, extra = 2, 16, 64, 9
+    gen = torch.Generator(device=dev).manual_seed(20 + T)
+    q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    bufs = []
+    for t, fill in ((q, 1.0), (k, 100.0), (v, 1e4)):
+        buf = torch.full((B, H, T + extra, D), fill, dtype=torch.bfloat16, device=dev)
+        buf[:, :, :T] = t
+        bufs.append(buf)
+    out = torch.empty_like(q)
+    att._attention_launch(*(build.ptr(t) for t in bufs), out, B, H, T,
+                          (H * (T + extra) * D, (T + extra) * D, D), (H * T * D, T * D, D),
+                          D**-0.5, False, att.MODES[mode], dev)
+    assert torch.equal(out, att.head_attention(q, k, v, mode))
+    assert float(out.float().abs().max()) < 10.0
+
+
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 18464])
+def test_gemm_ragged_rows(dev, M):
+    """The TMA + wgmma GEMM with the LN pass (K2's qkv projection) and with
+    the bias + residual epilogue (X3's out-projection), with and without a
+    residual, element by element within one bf16 step of the plain version
+    (2^-7 |plain|) plus a slack: 5e-4 where the product is all of the result,
+    2e-3 with a residual and behind the LN pass (whose row sums run in
+    another order than torch's and move a bf16 rounding of an LN output now
+    and then; all but 1 in 100,000 elements stay within 5e-4)."""
+    W = 1024
+    gen = torch.Generator(device=dev).manual_seed(30 + M % 97)
+    x = (torch.randn(1, M, W, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    wqkv = (torch.randn(W, 3 * W, generator=gen, device=dev) * W**-0.5).to(torch.bfloat16)
+    wo = (torch.randn(W, W, generator=gen, device=dev) * W**-0.5).to(torch.bfloat16)
+    bq = torch.randn(3 * W, generator=gen, device=dev) * 0.02
+    bo = torch.randn(W, generator=gen, device=dev) * 0.02
+    g = 1 + 0.1 * torch.randn(W, generator=gen, device=dev)
+    b = 0.1 * torch.randn(W, generator=gen, device=dev)
+
+    def excess(got, ref):
+        got, ref = got.float(), ref.float()
+        return (got - ref).abs() - 2**-7 * ref.abs()
+
+    n = att.ln_qkv.launches
+    over = excess(att.ln_qkv(x, wqkv, bq, g, b), att.ln_qkv_plain(x, wqkv, bq, g, b))
+    assert att.ln_qkv.launches == n + 1
+    assert float(over.max()) <= 2e-3 and float((over > 5e-4).float().mean()) <= 1e-5
+    for resid, atol in ((x, 2e-3), (torch.zeros_like(x), 5e-4)):
+        over = excess(att.proj_residual(x, wo, bo, resid),
+                      att.proj_residual_plain(x, wo, bo, resid))
+        assert float(over.max()) <= atol
 
 
 def test_fused_score_on_the_card_saves_what_it_scores(dev, tmp_path, monkeypatch):
