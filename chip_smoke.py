@@ -17,7 +17,12 @@ Phases (any failure raises; the exit code is then nonzero):
                 T 577, D 64, W 1024; K2's qkv GEMM and X3's out-projection
                 GEMM also alone, element by element), K5-K8 at one training
                 batch's (8192 rays, 32 coarse + 64 drawn samples, seeded
-                field); the attention kernel and the GEMM also over ragged
+                field; K7 also as its two parts, the row pass and the
+                weight-gradient products, the latter against f32 act^T delta
+                over K7's scratch; K7's gradients bit-identical from call to
+                call and with and without ray gradients); the ptxas C75xx
+                (wgmma serialisation) lines of each source counted; the
+                attention kernel and the GEMM also over ragged
                 shapes (T 1 to 584 in both layouts, every mode; M 1 to 129),
                 with poisoned rows past T that must leave no trace
   A bench       experiments/bench_attention.main() at the full shape with
@@ -27,19 +32,23 @@ Phases (any failure raises; the exit code is then nonzero):
                 the synth scene, 336^2, 36 views, 8192 rays, 32 + 32 samples,
                 depth supervision, 3000 steps; steps/s, final loss, and the
                 selftest's bar (PSNR > 22 dB, median depth error < 5 cm);
-                1 K5, 1 K6 and 1 K7 launch a step, no K8; K7 against its
-                plain version on the trained field; two fresh 20-step runs
-                from one seed bit-identical; a 20-step run with
+                1 K5, 1 K6 and 1 K7 launch a step (K7's row pass and
+                weight-gradient products once a chunk of rays), no K8; K7
+                against its plain version on the trained field; two fresh
+                20-step runs from one seed bit-identical; a 20-step run with
                 D2R_FUSED_SAMPLER=0, which launches K8
   3 main path   bench.py's workload on the trained field: synth scene, 336^2
                 view, plain-torch background render, random-weight
                 ViT-L/14-336, hash-tokenized captions through encode_text
                 (K4), 512 poses through make_imagine_and_score (fg_crop 128,
                 clip_batch 32), smoothed [16, 32, 1, 1, 1, 1] argmax; launch
-                counters checked; K1 timed on the trained field
+                counters checked; K1 timed on the trained field and held
+                against its plain version there (reported)
   4 main vs plain  one 32-pose clip group through the kernels and through
-                their plain versions: renders, image and text embeddings and
-                logits held; the score ratio and argmax reported
+                their plain versions: renders (99.9% of pixels identical, at
+                most 1e-4 of them more than 2 levels apart: depth ties),
+                image and text embeddings and logits held; the score ratio
+                and argmax reported
   5 grid scorer    scoring.optimise_pose_grid on the trained field
                 through CombinedRenderer and ClipScorer: 512 poses
                 ([32, 16, 1, 1, 1, 1]) without and with save_renders (512
@@ -91,6 +100,10 @@ DENSITY_MACS = 63 * 256 + 2 * 256 * 256 + 319 * 256 + 256 * 1
 # is needed only for ray gradients.
 DELTA_MACS = 64 * 3 + 64 * 64 + 15 * 64 + 256 * 16 + 3 * 256 * 256
 BWD_MACS = 2 * (TRUNK_MACS + COLOUR_MACS) + DELTA_MACS
+# Columns of K7's scratch a row at the real widths: the activations enc 63,
+# h0-h3, h4 16, SH 16, c0, c1 (1247) and the deltas rgb 3, c1, c0, h4 16,
+# h3-h0 (1107), bf16.
+SCRATCH_COLS = 63 + 4 * 256 + 16 + 16 + 64 + 64 + 3 + 64 + 64 + 16 + 4 * 256
 
 
 def log(*args):
@@ -126,8 +139,10 @@ def time_ms(fn, runs: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-# Calls queued per timing of the attention and GEMM rows (K2, K3, K9, X1-X4).
+# Calls queued per timing of the attention and GEMM rows (K2, K3, K9, X1-X4),
+# and of the K6 / K7 rows.
 QUEUED = 10
+TRAIN_QUEUED = 3
 
 
 def main() -> int:
@@ -172,8 +187,13 @@ def main() -> int:
     log(f"built {', '.join(build.SOURCES)} in {secs:.2f} s")
     for src in build.SOURCES:
         for line in build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  {src}: {line.strip()}")
+    # ptxas serialises wgmma where it cannot prove them safe to overlap and
+    # says so only as C75xx lines (see .claude/skills/verify/SKILL.md).
+    serialised = {src: sum("C75" in line for line in build.build_log(src).splitlines())
+                  for src in ("attention", "train")}
+    log(f"  ptxas wgmma serialisation (C75xx) lines: {serialised}")
 
     # ------------------------------------------------ scene (phases 2 to 4)
     res, crop, clip_batch = 336, 128, 32
@@ -577,10 +597,11 @@ def main() -> int:
         if err6 > 5e-3:
             raise AssertionError(f"K6: kernel vs plain max abs {err6} > 5e-3")
         fwd_macs = TRUNK_MACS + COLOUR_MACS
+        # K6 and K7 run 1-3 ms: three calls queued between the events.
         record(
             "train_fwd (K6)", "dream2real_tpu_torch/csrc/train.cu",
             "dream2real_tpu/nerf/train_kernel.py:508", err6,
-            time_ms(lambda: tk.train_fwd(*k6_args), 10),
+            time_ms(lambda: tk.train_fwd(*k6_args), 10, TRAIN_QUEUED),
             time_ms(lambda: tk.train_fwd_plain(*k6_args), 3),
             2.0 * fwd_macs * R * n_draw, R * (6 + n_draw + 5) * 4 + tw.numel() * 2, None,
         )
@@ -590,11 +611,16 @@ def main() -> int:
         # Each backward takes its own forward's outputs, as in training: the
         # closed form turns any difference between the saved outputs and the
         # backward's recompute into gradient error.
+        geo7 = tk.train_geometry(R, n_draw, torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count)
+        bufs7 = tk.bwd_buffers(geo7, dev)
         g_slim, _, _ = tk.train_bwd(*k6_args, *cot, C, A, D, False)
-        g_full, go_k, gd_k = tk.train_bwd(*k6_args, *cot, C, A, D, True)
+        g_full, go_k, gd_k = tk.train_bwd(*k6_args, *cot, C, A, D, True, buffers=bufs7)
+        g_again, _, _ = tk.train_bwd(*k6_args, *cot, C, A, D, False)
         g_plain, go_p, gd_p = tk.train_bwd_plain(*k6_args, *cot, *fwd_plain, True)
-        if not torch.equal(g_slim, g_full):
-            raise AssertionError("K7: parameter gradients differ with and without ray gradients")
+        if not (torch.equal(g_slim, g_full) and torch.equal(g_slim, g_again)):
+            raise AssertionError("K7: parameter gradients differ with and without ray gradients, "
+                                 "or from call to call")
         cos_f = torch.nn.functional.cosine_similarity
         err7, worst_cos = 0.0, 1.0
         for key, gk in tk.unpack_grads(g_full).items():
@@ -609,18 +635,69 @@ def main() -> int:
                    for a, b in ((go_k, go_p), (gd_k, gd_p))]
         log(f"  K7: parameter gradients worst {err7:.3e} x scale, least cosine {worst_cos:.6f}; "
             f"origin / dir cosine {ray_cos[0]:.6f} / {ray_cos[1]:.6f}; bit-identical with and "
-            f"without ray gradients")
+            f"without ray gradients and from call to call")
         if min(ray_cos) <= 0.95:
             raise AssertionError(f"K7: ray gradient cosines {ray_cos}")
         # K7 without ray gradients, the training default.
+        k7 = lambda phases=3: tk.train_bwd(*k6_args, *cot, C, A, D, False, phases,  # noqa: E731
+                                           buffers=bufs7)
+        bwd_bytes = R * (6 + n_draw + 10) * 4 + tw.numel() * 2 + tk.N_G * 4
         record(
             "train_bwd (K7)", "dream2real_tpu_torch/csrc/train.cu",
             "dream2real_tpu/nerf/train_kernel.py:581", err7,
-            time_ms(lambda: tk.train_bwd(*k6_args, *cot, C, A, D, False), 10),
+            time_ms(k7, 10, TRAIN_QUEUED),
             time_ms(lambda: tk.train_bwd_plain(*k6_args, *cot, *fwd_plain, False), 3),
-            2.0 * BWD_MACS * R * n_draw,
-            R * (6 + n_draw + 10) * 4 + tw.numel() * 2 + tk.N_G * 4, None,
+            2.0 * BWD_MACS * R * n_draw, bwd_bytes, None,
         )
+        # K7's two parts. The row pass writes each row's bf16 activations and
+        # deltas (SCRATCH_COLS of them, the weight gradients' exact inputs);
+        # its arithmetic is held through K7 above. The weight-gradient
+        # products read them back: held here against their plain version,
+        # f32 act^T delta over the scratch a full K7 left (the last chunk's
+        # blocks, then the chunk before's), in relative terms (the kernel's
+        # f32 sums run in another order: 1e-3 of the largest gradient).
+        rows_rs = R * n_draw
+        # 64-row blocks of each chunk's scratch.
+        chunk_blocks = [geo7["chunk_groups"] * geo7["steps"] * 2] * (geo7["n_chunks"] - 1) + [
+            (geo7["groups"] - (geo7["n_chunks"] - 1) * geo7["chunk_groups"]) * geo7["steps"] * 2]
+        k7(1)
+        grads_2 = k7(2)[0][: tk.N_G - tk.N_BIAS]
+        m_all = tk.scratch_rows(bufs7["scratch"], chunk_blocks[0])
+        plain_2 = tk.weight_grads_plain(m_all[: chunk_blocks[-1] * 64])
+        if geo7["n_chunks"] > 1:
+            plain_2 = plain_2 + (geo7["n_chunks"] - 1) * tk.weight_grads_plain(m_all)
+        err_dw = float((grads_2 - plain_2).abs().max())
+        log(f"  K7's weight-gradient products vs plain f32 act^T delta: max abs {err_dw:.3e} "
+            f"at max |plain| {float(plain_2.abs().max()):.3e}")
+        if err_dw > 1e-3 * float(plain_2.abs().max()):
+            raise AssertionError(f"K7's weight-gradient products: {err_dw} off the plain version")
+        del m_all, plain_2
+        record(
+            "train_bwd row pass (inside K7)", "dream2real_tpu_torch/csrc/train.cu",
+            "dream2real_tpu/nerf/train_kernel.py:581", err7,
+            time_ms(lambda: k7(1), 10, TRAIN_QUEUED),
+            time_ms(lambda: tk.train_bwd_plain(*k6_args, *cot, *fwd_plain, False), 3),
+            2.0 * (TRUNK_MACS + COLOUR_MACS + DELTA_MACS) * R * n_draw,
+            R * (6 + n_draw + 10) * 4 + tw.numel() * 2 + rows_rs * SCRATCH_COLS * 2, None,
+        )
+        # The library call: torch.matmul of the same act^T delta at the real
+        # widths, one call a weight matrix (8 calls, bf16 in and out).
+        shapes = ((63, 256), (256, 256), (256, 256), (319, 256), (256, 16), (31, 64), (64, 64),
+                  (64, 3))
+        lib_in = [(torch.randn(rows_rs, k, device=dev).to(torch.bfloat16),
+                   torch.randn(rows_rs, n, device=dev).to(torch.bfloat16)) for k, n in shapes]
+        lib_dw = time_ms(lambda: [torch.matmul(a_.t(), d_) for a_, d_ in lib_in], 10, TRAIN_QUEUED)
+        del lib_in
+        record(
+            "train_bwd weight gradients (inside K7)", "dream2real_tpu_torch/csrc/train.cu",
+            "dream2real_tpu/nerf/train_kernel.py:581", err_dw,
+            time_ms(lambda: k7(2), 10, TRAIN_QUEUED),
+            time_ms(lambda: [tk.weight_grads_plain(tk.scratch_rows(bufs7["scratch"], nrb))
+                             for nrb in chunk_blocks], 3),
+            2.0 * (TRUNK_MACS + COLOUR_MACS) * R * n_draw,
+            rows_rs * SCRATCH_COLS * 2 + tk.N_G * 4, lib_dw,
+        )
+        del bufs7
         k8_args = (o_t, d_t, ts_c, tbox, tw, tb, settings.min_transmittance)
         w8 = tk.density_weights(*k8_args)
         err8 = float((w8 - tk.density_weights_plain(*k8_args)).abs().max())
@@ -633,7 +710,7 @@ def main() -> int:
             time_ms(lambda: tk.density_weights_plain(*k8_args), 3),
             2.0 * DENSITY_MACS * R * nc, R * (6 + 2 * nc) * 4 + tw.numel() * 2, None,
         )
-        del C, A, D, fwd_plain, g_slim, g_full, g_plain
+        del C, A, D, fwd_plain, g_slim, g_full, g_again, g_plain
 
     # ------------------------------------------------------ A attention bench
     phase("A attention bench (experiments/bench_attention.main, full shape, 3 reps)")
@@ -690,9 +767,12 @@ def main() -> int:
                  "train_bwd (K7)": tk.train_bwd, "density_weights (K8)": tk.density_weights}
     for fn in train_fns.values():
         fn.launches = 0
+    tk.train_bwd.row_pass_launches = tk.train_bwd.weight_grad_launches = 0
     t_train = time.perf_counter()
     st = run_selftest(views=36, steps=TRAIN_STEPS, device=dev, log=lambda m: log(f"  {m}"))
     train_launches = {k: fn.launches for k, fn in train_fns.items()}
+    train_launches["train_bwd row pass (inside K7)"] = tk.train_bwd.row_pass_launches
+    train_launches["train_bwd weight gradients (inside K7)"] = tk.train_bwd.weight_grad_launches
     log(f"  trained {st['steps']} steps in {time.perf_counter() - t_train:.1f} s of wall "
         f"(data, kernel load, training and two 336^2 renders): {st['steps_per_s']:.2f} steps/s "
         f"over the last {st['timed_steps']}; final loss {st['final_loss']:.5f}; launches "
@@ -701,6 +781,11 @@ def main() -> int:
         if train_launches[key] != st["steps"]:
             raise AssertionError(
                 f"{key} launched {train_launches[key]} times in {st['steps']} steps")
+    chunks = tk.train_geometry(8192, n_draw, torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)["n_chunks"]
+    for key in ("train_bwd row pass (inside K7)", "train_bwd weight gradients (inside K7)"):
+        if train_launches[key] != chunks * st["steps"]:
+            raise AssertionError(f"{key} launched {train_launches[key]} times, not {chunks} a step")
     if train_launches["density_weights (K8)"] != 0:
         raise AssertionError("K8 launched on the fused-sampler path")
     for tag, psnr_, derr_ in (("view 5", st["psnr"], st["depth_err_m"]),
@@ -754,7 +839,7 @@ def main() -> int:
     if k8_launches["density_weights (K8)"] != 20 or k8_launches["density_sample (K5)"] != 0:
         raise AssertionError("the D2R_FUSED_SAMPLER=0 path did not run through K8")
     for k in kernels:
-        if k["name"] in train_fns:
+        if k["name"] in train_launches:
             k["launches"] = (k8_launches if k["name"] == "density_weights (K8)"
                              else train_launches)[k["name"]]
     field = field_t
@@ -839,7 +924,12 @@ def main() -> int:
                                                obj_aabb, crop_settings)
         args_t = (*k1_t, box_t, *mk.pack_params(field), crop_settings.n_coarse,
                   crop_settings.min_transmittance)
-        *_, needed_t = mk.march_plain(*args_t, True, count_samples=True)
+        *ref_t, needed_t = mk.march_plain(*args_t, True, count_samples=True)
+        got_t = mk.march(*args_t, True)
+        err_t = [float((a_ - b_).abs().max()) for a_, b_ in zip(got_t, ref_t)]
+        log(f"  K1 vs plain on the trained field: max |rgb|, |alpha|, |depth| differences "
+            f"{err_t[0]:.3e}, {err_t[1]:.3e}, {err_t[2]:.3e}; rays with depth apart by more "
+            f"than 1e-3: {int(((got_t[2] - ref_t[2]).abs() > 1e-3).sum())} of {got_t[2].numel()}")
         log(f"  K1 on the trained field: {time_ms(lambda: mk.march(*args_t, True), 10):.4f} ms "
             f"per clip group ({int(live_t.numel())} live rays, {needed_t} samples needed; bound "
             f"{bound_ms(2.0 * macs * needed_t, 0)[0]:.4f} ms)")
@@ -909,12 +999,17 @@ def main() -> int:
     txt_cos = float(cos(txt_emb, txt_plain, dim=-1).min())
     d_logit = float((k_logits - p_logits).abs().max())
     rel = float(((k_scores - p_scores).abs() / p_scores.abs()).max())
-    log(f"  renders: {same_px:.6f} of pixels identical, max {int(level.max())} levels apart")
+    far = float((level > 2).float().mean())
+    log(f"  renders: {same_px:.6f} of pixels identical, max {int(level.max())} levels apart, "
+        f"{far:.2e} of pixels more than 2 apart")
     log(f"  embeddings: min cosine image {img_cos:.7f}, text {txt_cos:.8f}; "
         f"max |logit difference| {d_logit:.4e} (logits up to {float(k_logits.abs().max()):.3f})")
     log(f"  scores (reported): max relative difference {rel:.3e}; argmax kernel "
         f"{int(k_scores.argmax())}, plain {int(p_scores.argmax())}")
-    if same_px < 0.999 or int(level.max()) > 2:
+    # A pixel whose foreground depth ties the background's within the
+    # march's depth error composites the other way round and differs by up
+    # to the whole colour step: such ties are held rare, not absent.
+    if same_px < 0.999 or far > 1e-4:
         raise AssertionError("main vs plain: the renders differ")
     if img_cos < 0.9995 or txt_cos < 0.99999:
         raise AssertionError("main vs plain: the embeddings differ")

@@ -23,7 +23,11 @@ function of the same name).
 
 Weights are packed once per call by ``pack_train_params``: every matrix (K x N)
 row-major for ``x @ W`` in bf16, the transposes the backward multiplies by
-beside them, f32 biases. Gradients come back in ``G_LAYOUT`` (the forward
+beside them, f32 biases. K5 and K8 read that layout; K6 and K7 stream
+``wgmma_image``'s (the same matrices cut into the K-tiles their wgmma
+products take, swizzled as shared memory holds them), and
+``train_geometry`` is where their tiles of (ray, sample) rows, K7's chunks
+of rays and its buffers are decided. Gradients come back in ``G_LAYOUT`` (the forward
 matrices' layout, f32) and ``unpack_grads`` maps them to the field's
 (in, out) parameters as the reference's ``_train_bwd`` does.
 
@@ -72,7 +76,92 @@ G_LAYOUT = tuple((n, k, c) for n, k, c in W_LAYOUT[:8]) + tuple((n, 1, c) for n,
 N_W = sum(k * n for _, k, n in W_LAYOUT)
 N_B = sum(n for _, n in B_LAYOUT)
 N_G = sum(k * n for _, k, n in G_LAYOUT)
-BLOCK_RAYS = 64  # rays per block of csrc/train.cu: one gradient partial each
+
+# K6 / K7 (csrc/train.cu, train_rows): the weight jobs in the order the
+# products take them, each (matrix, first row, rows, first column, columns,
+# ray gradients only): a K-tile of one layer, 128 or 64 columns wide, columns
+# past the matrix zero. wgmma_image lays them out one after another, each as
+# 64-column chunks of (rows x 128 bytes), 128-byte swizzled.
+_K256 = range(0, 256, 64)
+WGMMA_JOBS = (
+    *(("w0", 0, 64, n0, 128, False) for n0 in (0, 128)),
+    *((m, k0, 64, n0, 128, False) for m in ("w1", "w2") for n0 in (0, 128) for k0 in _K256),
+    *(("w3", k0, 64, n0, 128, False) for n0 in (0, 128) for k0 in range(0, 320, 64)),
+    *(("w4", k0, 64, 0, 64, False) for k0 in _K256),
+    ("cw0", 0, 32, 0, 64, False), ("cw1", 0, 64, 0, 64, False), ("cw2", 0, 64, 0, 64, False),
+    ("cw2t", 0, 16, 0, 64, False), ("cw1t", 0, 64, 0, 64, False), ("cw0t", 0, 64, 0, 64, False),
+    *(("w4t", 0, 16, n0, 128, False) for n0 in (0, 128)),
+    *(("w3t", k0, 64, 0, 64, True) for k0 in _K256),
+    *(("w3t", k0, 64, 64 + n0, 128, False) for n0 in (0, 128) for k0 in _K256),
+    *((m, k0, 64, n0, 128, False) for m in ("w2t", "w1t") for n0 in (0, 128) for k0 in _K256),
+    *(("w0t", k0, 64, 0, 64, True) for k0 in _K256),
+)
+IMAGE_BYTES = sum(2 * rows * cols for _, _, rows, _, cols, _ in WGMMA_JOBS)
+# K7's scratch: per 64-row block (one warpgroup's rows of a tile), 64-row x
+# 64-column bf16 chunks, 128-byte swizzled: the activations, then the deltas.
+SCRATCH_CHUNKS = (("enc", 1), ("h0", 4), ("h1", 4), ("h2", 4), ("h3", 4), ("cin", 1), ("c0", 1),
+                  ("c1", 1), ("dc2", 1), ("dc1", 1), ("dc0", 1), ("dh4", 1), ("dh3", 4),
+                  ("dh2", 4), ("dh1", 4), ("dh0", 4))
+CHUNK_BYTES = 64 * 64 * 2
+BLOCK_CHUNKS = sum(n for _, n in SCRATCH_CHUNKS)
+N_BIAS = N_G - sum(k * n for _, k, n in W_LAYOUT[:8])  # one bias row: b0 .. b4
+TILE_ROWS = 128  # rows of a tile: two warpgroups of 64
+
+
+def train_geometry(n_rays: int, S: int, n_sm: int) -> dict:
+    """Tiles, chunks and buffers of K6 and K7 (the C launch functions check
+    the first three). Rows are (ray, sample) pairs; a tile of ``TILE_ROWS``
+    holds ``rays_per_tile`` whole rays of S samples, or, for S > 128, one
+    ray's next 128 samples, walked in ``steps`` tiles by one block. A group
+    is a tile's rays; K6 runs one block a group, K7 ``chunk_groups`` groups
+    (a tile per SM: the largest chunk one wave runs) at a time, each chunk's row pass then its weight-gradient
+    products, over ``parts`` row ranges. The scratch, bias rows and part sums
+    are sized by the chunk, not by ``n_rays``."""
+    if S < 1:
+        raise ValueError(f"the training kernels need at least one sample a ray, got {S}")
+    if S <= TILE_ROWS:
+        rpt, spt, steps = TILE_ROWS // S, S, 1
+    else:
+        rpt, spt, steps = 1, TILE_ROWS, -(-S // TILE_ROWS)
+    groups = -(-n_rays // rpt)
+    chunk_groups = max(1, min(groups, n_sm))
+    parts = max(1, n_sm // 8)
+    return {"rays_per_tile": rpt, "samples_per_tile": spt, "steps": steps, "groups": groups,
+            "chunk_groups": chunk_groups, "n_chunks": -(-groups // chunk_groups), "parts": parts,
+            "scratch_bytes": chunk_groups * steps * 2 * BLOCK_CHUNKS * CHUNK_BYTES,
+            "bias_rows": chunk_groups * steps, "part_floats": parts * N_G}
+
+
+def _image_index() -> torch.Tensor:
+    """Gather index of the wgmma image: for each bf16 of it, its index into
+    the packed weights, or N_W (a zero) for padding."""
+    offs, off = {}, 0
+    for name, k, n in W_LAYOUT:
+        offs[name] = (off, n)
+        off += k * n
+    parts = []
+    for name, k0, rows, n0, cols, _ in WGMMA_JOBS:
+        base, n = offs[name]
+        r = torch.arange(rows)[:, None]
+        c = torch.arange(cols)[None, :]
+        src = torch.where(n0 + c < n, base + (k0 + r) * n + n0 + c, torch.full_like(r * c, N_W))
+        dst = (c // 64) * rows * 64 + r * 64 + (((c % 64) // 8) ^ (r % 8)) * 8 + c % 8
+        idx = torch.empty(rows * cols, dtype=torch.long)
+        idx[dst.reshape(-1)] = src.reshape(-1)
+        parts.append(idx)
+    return torch.cat(parts)
+
+
+_IMAGE_INDEX: dict = {}
+
+
+def wgmma_image(w: torch.Tensor) -> torch.Tensor:
+    """Packed bf16 weights (W_LAYOUT) -> the weight image K6 and K7 stream:
+    WGMMA_JOBS one after another, IMAGE_BYTES in all."""
+    idx = _IMAGE_INDEX.get(w.device)
+    if idx is None:
+        idx = _IMAGE_INDEX[w.device] = _image_index().to(w.device)
+    return torch.cat([w, w.new_zeros(1)])[idx]
 
 
 def supports_training(cfg: NGPConfig) -> bool:
@@ -432,19 +521,31 @@ def density_sample(origins, dirs, ts_c, exp_draws, box, w, b, n_draw: int,
 density_sample.launches = 0
 
 
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _image(w):
+    if _fn("d2r_train_image_bytes", [])() != IMAGE_BYTES:
+        raise RuntimeError("csrc/train.cu and WGMMA_JOBS disagree on the weight image")
+    return wgmma_image(w)
+
+
 def train_fwd(origins, dirs, ts, box, w, b, min_transmittance: float):
     """K6 wrapper: same arguments and results as ``train_fwd_plain``."""
     if not dirs.is_cuda:
         return train_fwd_plain(origins, dirs, ts, box, w, b, min_transmittance)
     n, S = _ray_args("train_fwd", origins, dirs, ts, box, w, b)
     dev = dirs.device
+    geo = train_geometry(n, S, _sm_count(dev))
     rgb = torch.empty(n, 3, dtype=F32, device=dev)
     alpha = torch.empty(n, dtype=F32, device=dev)
     depth = torch.empty(n, dtype=F32, device=dev)
-    err = _fn("d2r_train_fwd", [_P] * 3 + [_I, _I] + [_P] * 3 + [_F] + [_P] * 4)(
-        build.ptr(origins), build.ptr(dirs), build.ptr(ts), n, S, build.ptr(box), build.ptr(w),
-        build.ptr(b), float(min_transmittance), build.ptr(rgb), build.ptr(alpha),
-        build.ptr(depth), build.stream_ptr(dev))
+    img = _image(w)
+    err = _fn("d2r_train_fwd", [_P] * 3 + [_I, _I] + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 4)(
+        build.ptr(origins), build.ptr(dirs), build.ptr(ts), n, S, build.ptr(box), build.ptr(img),
+        build.ptr(b), float(min_transmittance), geo["rays_per_tile"], geo["samples_per_tile"],
+        geo["steps"], build.ptr(rgb), build.ptr(alpha), build.ptr(depth), build.stream_ptr(dev))
     build.check(err, "train_fwd")
     train_fwd.launches += 1
     return rgb, alpha, depth
@@ -454,11 +555,16 @@ train_fwd.launches = 0
 
 
 def train_bwd(origins, dirs, ts, box, w, b, min_transmittance: float,
-              dC, dA, dD, C, A_out, D, ray_grads: bool):
-    """K7 wrapper: same arguments and results as ``train_bwd_plain``. Each
-    64-ray block writes its own gradient partial and a second kernel sums
-    the partials in block order, so the gradients are the same from run to
-    run and do not depend on ``ray_grads``."""
+              dC, dA, dD, C, A_out, D, ray_grads: bool, phases: int = 3, buffers=None):
+    """K7 wrapper: same arguments and results as ``train_bwd_plain``. The
+    rays go in chunks of ``train_geometry``'s ``chunk_groups`` tiles: each
+    chunk's row pass writes its activations and deltas to a scratch, then
+    the weight-gradient products add the chunk to ``parts`` f32 sums, which
+    a last pass adds up in a fixed order, so the gradients are the same from
+    run to run and do not depend on ``ray_grads``. ``phases`` 1 or 2 runs
+    only the row passes or only the products and sums (for timing them
+    apart; the result is then not the gradient), on ``buffers`` from
+    ``bwd_buffers`` where given."""
     if not dirs.is_cuda:
         return train_bwd_plain(origins, dirs, ts, box, w, b, min_transmittance,
                                dC, dA, dD, C, A_out, D, ray_grads)
@@ -467,22 +573,71 @@ def train_bwd(origins, dirs, ts, box, w, b, min_transmittance: float,
         ("dD", dD, F32, (ts.shape[0],)), ("C", C, F32, (ts.shape[0], 3)),
         ("A", A_out, F32, (ts.shape[0],)), ("D", D, F32, (ts.shape[0],))])
     dev = dirs.device
-    n_blocks = -(-n // BLOCK_RAYS)
-    partials = torch.empty(n_blocks, N_G, dtype=F32, device=dev)
+    geo = train_geometry(n, S, _sm_count(dev))
+    bufs = bwd_buffers(geo, dev) if buffers is None else buffers
+    scratch, bias_rows, part = bufs["scratch"], bufs["bias_rows"], bufs["part"]
     grads = torch.empty(N_G, dtype=F32, device=dev)
     d_o = torch.zeros(n, 3, dtype=F32, device=dev)
     d_d = torch.zeros(n, 3, dtype=F32, device=dev)
-    err = _fn("d2r_train_bwd", [_P] * 3 + [_I, _I] + [_P] * 3 + [_F] + [_P] * 6 + [_I] + [_P] * 5)(
-        build.ptr(origins), build.ptr(dirs), build.ptr(ts), n, S, build.ptr(box), build.ptr(w),
+    img = _image(w)
+    err = _fn("d2r_train_bwd", [_P] * 3 + [_I, _I] + [_P] * 3 + [_F] + [_P] * 6 + [_I] * 6
+              + [_P] * 6 + [_I, _P])(
+        build.ptr(origins), build.ptr(dirs), build.ptr(ts), n, S, build.ptr(box), build.ptr(img),
         build.ptr(b), float(min_transmittance), build.ptr(dC), build.ptr(dA), build.ptr(dD),
-        build.ptr(C), build.ptr(A_out), build.ptr(D), int(bool(ray_grads)), build.ptr(partials),
-        build.ptr(grads), build.ptr(d_o), build.ptr(d_d), build.stream_ptr(dev))
+        build.ptr(C), build.ptr(A_out), build.ptr(D), int(bool(ray_grads)),
+        geo["rays_per_tile"], geo["samples_per_tile"], geo["steps"], geo["chunk_groups"],
+        geo["parts"], build.ptr(scratch), build.ptr(bias_rows), build.ptr(part), build.ptr(grads),
+        build.ptr(d_o), build.ptr(d_d), int(phases), build.stream_ptr(dev))
     build.check(err, "train_bwd")
     train_bwd.launches += 1
+    if n > 0:
+        if phases & 1:
+            train_bwd.row_pass_launches += geo["n_chunks"]
+        if phases & 2:
+            train_bwd.weight_grad_launches += geo["n_chunks"]
     return grads, d_o, d_d
 
 
-train_bwd.launches = 0
+def bwd_buffers(geo: dict, dev) -> dict:
+    """K7's chunk-sized buffers for ``geo``: the scratch of activations and
+    deltas, the tiles' bias rows, the parts' weight sums."""
+    return {"scratch": torch.empty(geo["scratch_bytes"], dtype=torch.uint8, device=dev),
+            "bias_rows": torch.empty(geo["bias_rows"], N_BIAS, dtype=F32, device=dev),
+            "part": torch.empty(geo["part_floats"], dtype=F32, device=dev)}
+
+
+def scratch_rows(scratch: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """The first n_blocks 64-row blocks of K7's scratch as one f32 (64
+    n_blocks, 64 BLOCK_CHUNKS) matrix: a row's activations and deltas in
+    SCRATCH_CHUNKS' column order."""
+    raw = scratch[: n_blocks * BLOCK_CHUNKS * CHUNK_BYTES].view(torch.bfloat16)
+    raw = raw.reshape(n_blocks, BLOCK_CHUNKS, 64 * 64)
+    r = torch.arange(64, device=scratch.device)[:, None]
+    c = torch.arange(64, device=scratch.device)[None, :]
+    pos = (r * 64 + (((c // 8) ^ (r % 8)) * 8) + c % 8).reshape(-1)
+    m = raw[:, :, pos].reshape(n_blocks, BLOCK_CHUNKS, 64, 64)
+    return m.permute(0, 2, 1, 3).reshape(n_blocks * 64, BLOCK_CHUNKS * 64).to(F32)
+
+
+def weight_grads_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7's weight-gradient products: every dW = act^T
+    delta (f32) over the rows of ``scratch_rows``, in G_LAYOUT without the
+    biases."""
+    cols, off = {}, 0
+    for name, n in SCRATCH_CHUNKS:
+        cols[name] = rows[:, 64 * off: 64 * (off + n)]
+        off += n
+    prods = (
+        (cols["enc"], cols["dh0"]), (cols["h0"], cols["dh1"]), (cols["h1"], cols["dh2"]),
+        (torch.cat([cols["enc"], cols["h2"]], 1), cols["dh3"]), (cols["h3"], cols["dh4"][:, :16]),
+        (cols["cin"][:, :32], cols["dc0"]), (cols["c0"], cols["dc1"]),
+        (cols["c1"], cols["dc2"][:, :16]))
+    return torch.cat([(a.t() @ d).reshape(-1) for a, d in prods])
+
+
+# Launches of K7 and of its two parts (the row pass, the weight-gradient
+# products: one of each a chunk).
+train_bwd.launches = train_bwd.row_pass_launches = train_bwd.weight_grad_launches = 0
 
 
 # ------------------------------------------------------- autograd + renderer

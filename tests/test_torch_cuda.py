@@ -204,6 +204,69 @@ def test_train_kernels_match_plain(dev):
     assert [a - c for a, c in zip(after, before)] == [1, 3, 1, 1]
 
 
+def _grads_close(g_k, g_p, what):
+    """K7's parameter gradients against the plain version's: 8e-2 x scale
+    and cosine > 0.995 (the reference's tolerance), per parameter."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    for name, gk in tk.unpack_grads(g_k).items():
+        gp = tk.unpack_grads(g_p)[name]
+        scale = float(gp.abs().max())
+        if scale < 1e-6:  # no signal in this parameter for these rays
+            assert float(gk.abs().max()) < 1e-5, (what, name)
+            continue
+        assert _cos(gk, gp) > 0.995, (what, name, _cos(gk, gp))
+        torch.testing.assert_close(gk, gp, atol=8e-2 * scale, rtol=0, msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("S", [1, 2, 33, 64, 65, 128])
+@pytest.mark.parametrize("R", [1, 63, 64, 65, 8191])
+def test_train_fwd_bwd_ragged(dev, R, S):
+    """K6 and K7 against their plain versions where S does not fill the
+    128-row tile and R does not fill the last tile or chunk; K7's parameter
+    gradients bit-identical from call to call and with and without ray
+    gradients."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    _, o, d, ts, box, w, b, rng = _train_inputs(dev, R, S, seed=R + S)
+    C, A, D = tk.train_fwd(o, d, ts, box, w, b, 1e-4)
+    ref = tk.train_fwd_plain(o, d, ts, box, w, b, 1e-4)
+    for got, want in zip((C, A, D), ref):
+        torch.testing.assert_close(got, want, atol=5e-3, rtol=0)
+    cot = [torch.tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)
+           for s in ((R, 3), (R,), (R,))]
+    g_k, go_k, gd_k = tk.train_bwd(o, d, ts, box, w, b, 1e-4, *cot, C, A, D, True)
+    g_p, go_p, gd_p = tk.train_bwd_plain(o, d, ts, box, w, b, 1e-4, *cot, *ref, True)
+    _grads_close(g_k, g_p, f"R {R} S {S}")
+    if R * S >= 64:
+        assert _cos(go_k, go_p) > 0.95 and _cos(gd_k, gd_p) > 0.95
+    g_slim, go_slim, _ = tk.train_bwd(o, d, ts, box, w, b, 1e-4, *cot, C, A, D, False)
+    assert torch.equal(g_slim, g_k) and float(go_slim.abs().max()) == 0.0
+    assert torch.equal(tk.train_bwd(o, d, ts, box, w, b, 1e-4, *cot, C, A, D, True)[0], g_k)
+
+
+@pytest.mark.parametrize("R, S", [(63, 64), (1, 33), (2, 40)])
+def test_rays_past_the_end_add_zero(dev, R, S):
+    """A ray with zero cotangents in a tile's last free place changes no
+    gradient bit: rays past R (the tile's padding) add exactly zero too."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    _, o, d, ts, box, w, b, rng = _train_inputs(dev, R + 1, S, seed=7)
+    geo, geo1 = tk.train_geometry(R, S, 132), tk.train_geometry(R + 1, S, 132)
+    assert geo["groups"] == geo1["groups"]
+    cot = [torch.tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)
+           for s in ((R + 1, 3), (R + 1,), (R + 1,))]
+    for c in cot:
+        c[R:] = 0.0
+    out = tk.train_fwd(o, d, ts, box, w, b, 1e-4)
+    g1, go1, _ = tk.train_bwd(o, d, ts, box, w, b, 1e-4, *cot, *out, True)
+    g0, go0, _ = tk.train_bwd(o[:R].contiguous(), d[:R].contiguous(), ts[:R].contiguous(), box,
+                              w, b, 1e-4, *(c[:R].contiguous() for c in cot),
+                              *(x[:R].contiguous() for x in out), True)
+    assert torch.equal(g0, g1)
+    assert torch.equal(go0, go1[:R]) and float(go1[R:].abs().max()) == 0.0
+
+
 def test_render_rays_train_on_the_card(dev, monkeypatch):
     """The training renderer's autograd path launches K5, K6, K7 once each
     (K8 with D2R_FUSED_SAMPLER=0); miss rays give zeros."""

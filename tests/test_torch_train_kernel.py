@@ -251,3 +251,89 @@ def test_miss_rays_zero_output_and_grad(fields):
 def test_supports_training_gate_parity(change):
     assert ttk.supports_training(CFG._replace(**change)) == jtk.supports_training(
         JCFG._replace(**change))
+
+
+def _tile_rows(geo, n_rays, S):
+    """The (ray, sample) of every tile row as csrc/train.cu's train_rows maps
+    them (row r of a group's step is sample step * spt + r % spt of the
+    group's ray r // spt): (groups, steps, TILE_ROWS, 2), -1 where a row
+    holds no sample."""
+    rpt, spt, steps = geo["rays_per_tile"], geo["samples_per_tile"], geo["steps"]
+    g = torch.arange(geo["groups"])[:, None, None]
+    step = torch.arange(steps)[None, :, None]
+    r = torch.arange(ttk.TILE_ROWS)[None, None, :]
+    lr, s = r // spt, step * spt + r % spt
+    ray = g * rpt + lr
+    ok = (lr < rpt) & (s < S) & (ray < n_rays)
+    out = torch.stack(torch.broadcast_tensors(ray, s), dim=-1)
+    return torch.where(ok[..., None], out, torch.full_like(out, -1))
+
+
+@pytest.mark.parametrize("R, S", [(1, 1), (63, 33), (64, 64), (65, 65), (300, 128), (5, 200),
+                                  (8191, 2), (8192, 64)])
+def test_train_geometry_tiles_every_row_once(R, S):
+    """K6 / K7's tiles: every (ray, sample) row lands in exactly one tile
+    row, a ray's rows stay in one group (whole rays share a tile, or one
+    block walks a long ray's steps in order), and K7's scratch follows the
+    chunk, not R."""
+    geo = ttk.train_geometry(R, S, 132)
+    rpt, spt = geo["rays_per_tile"], geo["samples_per_tile"]
+    assert rpt * spt <= ttk.TILE_ROWS and geo["steps"] * spt >= S
+    rows = _tile_rows(geo, R, S)  # (groups, steps, 128, 2)
+    assert rows.shape == (geo["groups"], geo["steps"], ttk.TILE_ROWS, 2)
+    flat = rows.reshape(-1, 2)
+    kept = flat[flat[:, 0] >= 0]
+    assert kept.shape[0] == R * S
+    assert torch.unique(kept[:, 0] * S + kept[:, 1]).numel() == R * S
+    group_of = torch.arange(geo["groups"])[:, None, None].expand(rows.shape[:3])
+    ok = rows[..., 0] >= 0
+    # A ray's rows all lie in one group, and within it in sample order.
+    assert torch.equal(group_of[ok], rows[..., 0][ok] // rpt)
+    order = rows[..., 1].clone()
+    order[~ok] = -1
+    for g in range(min(geo["groups"], 3)):
+        for ray in range(rpt):
+            s = order[g][rows[g][..., 0] == g * rpt + ray]
+            assert torch.equal(s, torch.arange(s.numel()))
+    assert geo["n_chunks"] * geo["chunk_groups"] >= geo["groups"]
+    assert geo["scratch_bytes"] == (geo["chunk_groups"] * geo["steps"] * 2 * ttk.BLOCK_CHUNKS
+                                    * ttk.CHUNK_BYTES)
+    # The buffers stop growing with R once a chunk is full.
+    full = 132 * rpt  # rays of a full chunk
+    bigger = ttk.train_geometry(2 * full + R, S, 132)
+    assert bigger["chunk_groups"] == 132
+    assert geo["scratch_bytes"] <= bigger["scratch_bytes"] == ttk.train_geometry(
+        7 * full + R, S, 132)["scratch_bytes"]
+
+
+def _swizzled_job(img, off, rows, cols):
+    """A job of the wgmma image back to its (rows, cols) matrix."""
+    flat = img[off // 2: off // 2 + rows * cols]
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(cols)[None, :]
+    pos = (c // 64) * rows * 64 + r * 64 + (((c % 64) // 8) ^ (r % 8)) * 8 + c % 8
+    return flat[pos]
+
+
+@pytest.mark.parametrize("name", sorted({job[0] for job in ttk.WGMMA_JOBS}))
+def test_wgmma_image_holds_every_job(fields, name):
+    """The image K6 and K7 stream: each job of matrix `name` unswizzles to
+    its K-tile of the packed matrix, zero past the matrix's columns, and the
+    jobs of a matrix cover it once."""
+    _, _, w, b, _ = fields
+    img = ttk.wgmma_image(w)
+    assert img.numel() * 2 == ttk.IMAGE_BYTES
+    mats, _ = ttk._unpack(w, b)
+    m = mats[name]
+    seen = torch.zeros(m.shape, dtype=torch.int32)
+    off = 0
+    for jname, k0, rows, n0, cols, _ in ttk.WGMMA_JOBS:
+        if jname == name:
+            got = _swizzled_job(img, off, rows, cols)
+            real = min(cols, m.shape[1] - n0)
+            assert torch.equal(got[:, :real], m[k0:k0 + rows, n0:n0 + real])
+            assert float(got[:, real:].float().abs().sum()) == 0.0
+            seen[k0:k0 + rows, n0:n0 + real] += 1
+        off += 2 * rows * cols
+    assert off == ttk.IMAGE_BYTES
+    assert int(seen.min()) == 1 and int(seen.max()) == 1
