@@ -1426,16 +1426,15 @@ extern "C" int d2r_train_fwd(const void* origins, const void* dirs, const void* 
 
 // K7. The row geometry as for K6, and chunk_groups groups a chunk; scratch
 // holds chunk_groups * steps * 2 64-row blocks, bias_rows chunk_groups *
-// steps rows of kBiasCols, part `parts` x kGSize floats. phases: 1 the row
-// passes, 2 the weight-gradient products and the final sums, 3 both (each
-// chunk's row pass, then its products).
+// steps rows of kBiasCols, part `parts` x kGSize floats. Each chunk's row
+// pass, then its weight-gradient products; the final sums last.
 extern "C" int d2r_train_bwd(const void* origins, const void* dirs, const void* ts, int n_rays,
                              int S, const void* box, const void* img, const void* b,
                              float min_trans, const void* dC, const void* dA, const void* dD,
                              const void* C, const void* A, const void* D, int ray_grads,
                              int rpt, int spt, int steps, int chunk_groups, int parts,
                              void* scratch, void* bias_rows, void* part, void* grads,
-                             void* d_origins, void* d_dirs, int phases, void* stream) {
+                             void* d_origins, void* d_dirs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_rays <= 0) return int(cudaMemsetAsync(grads, 0, sizeof(float) * kGSize, st));
   if (!rows_ok(n_rays, S, rpt, spt, steps) || chunk_groups <= 0 || parts <= 0)
@@ -1470,20 +1469,13 @@ extern "C" int d2r_train_bwd(const void* origins, const void* dirs, const void* 
     const int ng = groups - g0 < chunk_groups ? groups - g0 : chunk_groups;
     a.group0 = g0;
     a.first_chunk = g0 == 0;
-    if (phases & 1)
-      if (int err = launch_rows<true>(a, ng, st)) return err;
-    if (phases & 2) {
-      const int nrb = ng * steps * 2;
-      if (int err = launch_dw(a.scratch, nrb, parts, pp, g0 == 0, st)) return err;
-    }
+    if (int err = launch_rows<true>(a, ng, st)) return err;
+    if (int err = launch_dw(a.scratch, ng * steps * 2, parts, pp, g0 == 0, st)) return err;
   }
-  if (phases & 2) {
-    const int n_bias_rows = (groups < chunk_groups ? groups : chunk_groups) * steps;
-    reduce_grads<<<(kGSize + 255) / 256, 256, 0, st>>>(pp, parts, a.bias_rows, n_bias_rows,
-                                                      static_cast<float*>(grads));
-    return int(cudaGetLastError());
-  }
-  return 0;
+  const int n_bias_rows = (groups < chunk_groups ? groups : chunk_groups) * steps;
+  reduce_grads<<<(kGSize + 255) / 256, 256, 0, st>>>(pp, parts, a.bias_rows, n_bias_rows,
+                                                    static_cast<float*>(grads));
+  return int(cudaGetLastError());
 }
 
 extern "C" int d2r_density_weights(const void* origins, const void* dirs, const void* ts,

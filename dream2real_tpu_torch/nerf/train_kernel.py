@@ -462,11 +462,11 @@ def _check(name, tensors):
                 f"{tensors[0][1].device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _ray_args(name, origins, dirs, ts, box, w, b, extra=()):
+def _ray_args(name, origins, dirs, ts, box, w, b, extra=(), n_w=N_W):
     n, S = ts.shape
     _check(name, [
         ("dirs", dirs, F32, (n, 3)), ("origins", origins, F32, (n, 3)), ("ts", ts, F32, (n, S)),
-        ("box", box, F32, (6,)), ("w", w, BF16, (N_W,)), ("b", b, F32, (N_B,)), *extra])
+        ("box", box, F32, (6,)), ("w", w, BF16, (n_w,)), ("b", b, F32, (N_B,)), *extra])
     return n, S
 
 
@@ -526,6 +526,8 @@ def _sm_count(dev) -> int:
 
 
 def _image(w):
+    """Packed w -> K6's and K7's weight image (``wgmma_image``), checked
+    against the size the C side streams."""
     if _fn("d2r_train_image_bytes", [])() != IMAGE_BYTES:
         raise RuntimeError("csrc/train.cu and WGMMA_JOBS disagree on the weight image")
     return wgmma_image(w)
@@ -535,13 +537,18 @@ def train_fwd(origins, dirs, ts, box, w, b, min_transmittance: float):
     """K6 wrapper: same arguments and results as ``train_fwd_plain``."""
     if not dirs.is_cuda:
         return train_fwd_plain(origins, dirs, ts, box, w, b, min_transmittance)
-    n, S = _ray_args("train_fwd", origins, dirs, ts, box, w, b)
+    _ray_args("train_fwd", origins, dirs, ts, box, w, b)
+    return _train_fwd_launch(origins, dirs, ts, box, _image(w), b, min_transmittance)
+
+
+def _train_fwd_launch(origins, dirs, ts, box, img, b, min_transmittance: float):
+    """K6 on the weight image ``img`` (``_image``) of CUDA tensors."""
+    n, S = _ray_args("train_fwd", origins, dirs, ts, box, img, b, n_w=IMAGE_BYTES // 2)
     dev = dirs.device
     geo = train_geometry(n, S, _sm_count(dev))
     rgb = torch.empty(n, 3, dtype=F32, device=dev)
     alpha = torch.empty(n, dtype=F32, device=dev)
     depth = torch.empty(n, dtype=F32, device=dev)
-    img = _image(w)
     err = _fn("d2r_train_fwd", [_P] * 3 + [_I, _I] + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 4)(
         build.ptr(origins), build.ptr(dirs), build.ptr(ts), n, S, build.ptr(box), build.ptr(img),
         build.ptr(b), float(min_transmittance), geo["rays_per_tile"], geo["samples_per_tile"],
@@ -555,46 +562,50 @@ train_fwd.launches = 0
 
 
 def train_bwd(origins, dirs, ts, box, w, b, min_transmittance: float,
-              dC, dA, dD, C, A_out, D, ray_grads: bool, phases: int = 3, buffers=None):
+              dC, dA, dD, C, A_out, D, ray_grads: bool):
     """K7 wrapper: same arguments and results as ``train_bwd_plain``. The
     rays go in chunks of ``train_geometry``'s ``chunk_groups`` tiles: each
     chunk's row pass writes its activations and deltas to a scratch, then
     the weight-gradient products add the chunk to ``parts`` f32 sums, which
     a last pass adds up in a fixed order, so the gradients are the same from
-    run to run and do not depend on ``ray_grads``. ``phases`` 1 or 2 runs
-    only the row passes or only the products and sums (for timing them
-    apart; the result is then not the gradient), on ``buffers`` from
-    ``bwd_buffers`` where given."""
+    run to run and do not depend on ``ray_grads``."""
     if not dirs.is_cuda:
         return train_bwd_plain(origins, dirs, ts, box, w, b, min_transmittance,
                                dC, dA, dD, C, A_out, D, ray_grads)
-    n, S = _ray_args("train_bwd", origins, dirs, ts, box, w, b, [
-        ("dC", dC, F32, (ts.shape[0], 3)), ("dA", dA, F32, (ts.shape[0],)),
-        ("dD", dD, F32, (ts.shape[0],)), ("C", C, F32, (ts.shape[0], 3)),
-        ("A", A_out, F32, (ts.shape[0],)), ("D", D, F32, (ts.shape[0],))])
+    _ray_args("train_bwd", origins, dirs, ts, box, w, b)
+    return _train_bwd_launch(origins, dirs, ts, box, _image(w), b, min_transmittance,
+                             dC, dA, dD, C, A_out, D, ray_grads)
+
+
+def _train_bwd_launch(origins, dirs, ts, box, img, b, min_transmittance: float,
+                      dC, dA, dD, C, A_out, D, ray_grads: bool, bufs=None):
+    """K7 on the weight image ``img`` of CUDA tensors, with ``bwd_buffers``
+    of its geometry (allocated here unless given)."""
+    R = ts.shape[0]
+    n, S = _ray_args("train_bwd", origins, dirs, ts, box, img, b, [
+        ("dC", dC, F32, (R, 3)), ("dA", dA, F32, (R,)), ("dD", dD, F32, (R,)),
+        ("C", C, F32, (R, 3)), ("A", A_out, F32, (R,)), ("D", D, F32, (R,))],
+        n_w=IMAGE_BYTES // 2)
     dev = dirs.device
     geo = train_geometry(n, S, _sm_count(dev))
-    bufs = bwd_buffers(geo, dev) if buffers is None else buffers
-    scratch, bias_rows, part = bufs["scratch"], bufs["bias_rows"], bufs["part"]
+    bufs = bwd_buffers(geo, dev) if bufs is None else bufs
     grads = torch.empty(N_G, dtype=F32, device=dev)
     d_o = torch.zeros(n, 3, dtype=F32, device=dev)
     d_d = torch.zeros(n, 3, dtype=F32, device=dev)
-    img = _image(w)
     err = _fn("d2r_train_bwd", [_P] * 3 + [_I, _I] + [_P] * 3 + [_F] + [_P] * 6 + [_I] * 6
-              + [_P] * 6 + [_I, _P])(
+              + [_P] * 7)(
         build.ptr(origins), build.ptr(dirs), build.ptr(ts), n, S, build.ptr(box), build.ptr(img),
         build.ptr(b), float(min_transmittance), build.ptr(dC), build.ptr(dA), build.ptr(dD),
         build.ptr(C), build.ptr(A_out), build.ptr(D), int(bool(ray_grads)),
         geo["rays_per_tile"], geo["samples_per_tile"], geo["steps"], geo["chunk_groups"],
-        geo["parts"], build.ptr(scratch), build.ptr(bias_rows), build.ptr(part), build.ptr(grads),
-        build.ptr(d_o), build.ptr(d_d), int(phases), build.stream_ptr(dev))
+        geo["parts"], build.ptr(bufs["scratch"]), build.ptr(bufs["bias_rows"]),
+        build.ptr(bufs["part"]), build.ptr(grads), build.ptr(d_o), build.ptr(d_d),
+        build.stream_ptr(dev))
     build.check(err, "train_bwd")
     train_bwd.launches += 1
     if n > 0:
-        if phases & 1:
-            train_bwd.row_pass_launches += geo["n_chunks"]
-        if phases & 2:
-            train_bwd.weight_grad_launches += geo["n_chunks"]
+        train_bwd.row_pass_launches += geo["n_chunks"]
+        train_bwd.weight_grad_launches += geo["n_chunks"]
     return grads, d_o, d_d
 
 
@@ -647,26 +658,33 @@ _PARAM_KEYS = ("trunk_w0", "trunk_b0", "trunk_w1", "trunk_b1", "trunk_w2", "trun
 
 
 class _RenderTrainFused(torch.autograd.Function):
-    """K6 forward, K7 backward. The forward saves its outputs; the backward
-    returns the field's (in, out) gradients, zeros for ts, and zeros for the
-    rays unless need_ray_grads."""
+    """K6 forward, K7 backward. The forward builds the weight image once for
+    both and saves its outputs; the backward returns the field's (in, out)
+    gradients, zeros for ts, and zeros for the rays unless need_ray_grads.
+    CPU tensors take the plain versions on the packed weights."""
 
     @staticmethod
     def forward(ctx, origins, dirs, ts, box, min_transmittance, need_ray_grads, *params):
         w, b = pack_train_params(dict(zip(_PARAM_KEYS, params)))
-        rgb, alpha, depth = train_fwd(origins, dirs, ts, box, w, b, min_transmittance)
-        ctx.save_for_backward(origins, dirs, ts, box, w, b, rgb, alpha, depth)
+        if dirs.is_cuda:
+            _ray_args("train_fwd", origins, dirs, ts, box, w, b)
+            wk, fwd = _image(w), _train_fwd_launch
+        else:
+            wk, fwd = w, train_fwd_plain
+        rgb, alpha, depth = fwd(origins, dirs, ts, box, wk, b, min_transmittance)
+        ctx.save_for_backward(origins, dirs, ts, box, wk, b, rgb, alpha, depth)
         ctx.min_transmittance = min_transmittance
         ctx.need_ray_grads = need_ray_grads
         return rgb, alpha, depth
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha, g_depth):
-        origins, dirs, ts, box, w, b, rgb, alpha, depth = ctx.saved_tensors
+        origins, dirs, ts, box, wk, b, rgb, alpha, depth = ctx.saved_tensors
         cots = [torch.zeros_like(o) if g is None else g.contiguous()
                 for g, o in ((g_rgb, rgb), (g_alpha, alpha), (g_depth, depth))]
-        grads, d_o, d_d = train_bwd(origins, dirs, ts, box, w, b, ctx.min_transmittance,
-                                    *cots, rgb, alpha, depth, ctx.need_ray_grads)
+        bwd = _train_bwd_launch if dirs.is_cuda else train_bwd_plain
+        grads, d_o, d_d = bwd(origins, dirs, ts, box, wk, b, ctx.min_transmittance,
+                              *cots, rgb, alpha, depth, ctx.need_ray_grads)
         per_param = unpack_grads(grads)
         return (d_o, d_d, torch.zeros_like(ts), None, None, None,
                 *(per_param[k] for k in _PARAM_KEYS))
