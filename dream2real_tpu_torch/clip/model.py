@@ -6,6 +6,10 @@ names; matmul weights are stored in bf16 (the reference rounds them to bf16
 at every use), biases, LayerNorm parameters and the two output projections
 in f32. Numerics: bf16 matmul inputs with f32 accumulation, bf16 residual
 stream, f32 LayerNorm and softmax, QuickGELU on the bf16-rounded fc1 output.
+Every biased layer (qkv on the split path, the out-projection, fc1, fc2)
+runs on the port's GEMM, whose epilogue adds the f32 bias to the f32
+accumulator and rounds where the reference does (ops/attention.py's
+``linear_bias*``); the patchify, which has no bias, is a bf16 matmul.
 """
 
 from __future__ import annotations
@@ -18,8 +22,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from dream2real_tpu_torch.device import BF16, F32, dot_exact, dot_f32, resolve_device
-from dream2real_tpu_torch.ops.attention import layer_norm, mha, mha_ln_qkv, mha_qkv
+from dream2real_tpu_torch.device import BF16, F32, dot_bf16, dot_exact, resolve_device
+from dream2real_tpu_torch.ops.attention import (
+    layer_norm,
+    linear_bias,
+    linear_bias_gelu,
+    linear_bias_then_resid,
+    mha,
+    mha_ln_qkv,
+    mha_qkv,
+)
 
 
 class CLIPConfig(NamedTuple):
@@ -136,57 +148,51 @@ def _fused_ln_attn_mode() -> str:
     return mode
 
 
-def _linear_bf16(x: torch.Tensor, lin: Linear) -> torch.Tensor:
-    return (dot_f32(x, lin.w) + lin.b).to(BF16)
-
-
 def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
     B, T, W = t.shape
     return t.reshape(B, T, n_heads, W // n_heads).permute(0, 2, 1, 3).contiguous()
 
 
-def _attn(x: torch.Tensor, blk: Block, n_heads: int, causal: bool) -> torch.Tensor:
-    """LN'd x -> attention + out-projection (bf16). Bidirectional: K3 on the
-    projection layout; causal (text tower): K4 on head-split q, k, v."""
-    B, T, W = x.shape
-    qkv = _linear_bf16(x, blk.qkv)
+def _attn(xn: torch.Tensor, blk: Block, n_heads: int, causal: bool) -> torch.Tensor:
+    """LN'd x -> attention output before the out-projection (bf16).
+    Bidirectional: K3 on the projection layout; causal (text tower): K4 on
+    head-split q, k, v."""
+    B, T, W = xn.shape
+    qkv = linear_bias(xn, blk.qkv.w, blk.qkv.b)
     if not causal:
-        out = mha_qkv(qkv, n_heads)
-    else:
-        q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
-        out = mha(q, k, v, causal=True).permute(0, 2, 1, 3).reshape(B, T, W)
-    return _linear_bf16(out, blk.proj)
+        return mha_qkv(qkv, n_heads)
+    q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    return mha(q, k, v, causal=True).permute(0, 2, 1, 3).reshape(B, T, W)
 
 
 def _mlp_block(x: torch.Tensor, blk: Block) -> torch.Tensor:
-    # fc1 output rounds to bf16 BEFORE QuickGELU (x * sigmoid(1.702 x)).
-    h = _linear_bf16(x, blk.fc1)
-    h = h * torch.sigmoid(1.702 * h.to(F32)).to(BF16)
-    return _linear_bf16(h, blk.fc2)
+    """x + MLP(LN2(x)): fc1's output rounds to bf16 BEFORE QuickGELU
+    (x * sigmoid(1.702 x)), fc2's before the residual add."""
+    h = linear_bias_gelu(layer_norm(x, blk.ln2_g, blk.ln2_b), blk.fc1.w, blk.fc1.b)
+    return linear_bias_then_resid(h, blk.fc2.w, blk.fc2.b, x)
 
 
 def _block(x: torch.Tensor, blk: Block, n_heads: int, causal: bool = False) -> torch.Tensor:
     if not causal and _fused_ln_attn_mode() == "1":
         a = mha_ln_qkv(x.to(BF16), blk.qkv.w, blk.qkv.b, blk.ln1_g, blk.ln1_b, n_heads)
-        x = x + _linear_bf16(a, blk.proj)
     else:
-        x = x + _attn(layer_norm(x, blk.ln1_g, blk.ln1_b), blk, n_heads, causal)
-    return x + _mlp_block(layer_norm(x, blk.ln2_g, blk.ln2_b), blk)
+        a = _attn(layer_norm(x, blk.ln1_g, blk.ln1_b), blk, n_heads, causal)
+    return _mlp_block(linear_bias_then_resid(a, blk.proj.w, blk.proj.b, x), blk)
 
 
 def _attn_cls(x: torch.Tensor, blk: Block, n_heads: int) -> torch.Tensor:
-    """Attention output of the CLS token only, (B, T, W) -> (B, 1, W): k/v
-    from every token, q and the out-projection from token 0. The (B, H, 1, T)
-    logits are tiny; they run as plain f32 products of bf16 values."""
+    """Attention output of the CLS token only, before the out-projection,
+    (B, T, W) -> (B, 1, W): k/v from every token, q from token 0. The
+    (B, H, 1, T) logits are tiny; they run as plain f32 products of bf16
+    values."""
     B, T, W = x.shape
     hd = W // n_heads
-    qkv = _linear_bf16(layer_norm(x, blk.ln1_g, blk.ln1_b), blk.qkv)
+    qkv = linear_bias(layer_norm(x, blk.ln1_g, blk.ln1_b), blk.qkv.w, blk.qkv.b)
     q, k, v = qkv.split(W, dim=-1)
     q, k, v = _heads(q[:, :1], n_heads), _heads(k, n_heads), _heads(v, n_heads)
     logits = dot_exact(q, k.transpose(-1, -2))
     w = torch.softmax(logits * hd**-0.5, dim=-1).to(BF16)
-    out = dot_exact(w, v).permute(0, 2, 1, 3).reshape(B, 1, W).to(BF16)
-    return _linear_bf16(out, blk.proj)
+    return dot_exact(w, v).permute(0, 2, 1, 3).reshape(B, 1, W).to(BF16)
 
 
 # ------------------------------------------------------------------ towers
@@ -201,7 +207,7 @@ def encode_image(model: CLIPModel, pixels: torch.Tensor) -> torch.Tensor:
     # Patchify as a matmul (a conv with stride == kernel == patch).
     x = pixels.reshape(B, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(B, g * g, ps * ps * 3).to(BF16)
-    x = dot_f32(x, model.v_patch_w.reshape(ps * ps * 3, W)).to(BF16)
+    x = dot_bf16(x, model.v_patch_w.reshape(ps * ps * 3, W))
     cls = model.v_class_emb.expand(B, 1, W)
     x = torch.cat([cls, x], dim=1) + model.v_pos_emb
     x = layer_norm(x, model.v_ln_pre_g, model.v_ln_pre_b)
@@ -210,8 +216,9 @@ def encode_image(model: CLIPModel, pixels: torch.Tensor) -> torch.Tensor:
     # Final block: only the CLS row feeds ln_post, so its attention query,
     # projection and MLP run for token 0 alone (the same math).
     blk = model.v_blk[cfg.vision_layers - 1]
-    x_cls = x[:, :1] + _attn_cls(x, blk, cfg.vision_heads)
-    x_cls = x_cls + _mlp_block(layer_norm(x_cls, blk.ln2_g, blk.ln2_b), blk)
+    x_cls = linear_bias_then_resid(_attn_cls(x, blk, cfg.vision_heads), blk.proj.w, blk.proj.b,
+                                   x[:, :1].contiguous())
+    x_cls = _mlp_block(x_cls, blk)
     x = layer_norm(x_cls[:, 0], model.v_ln_post_g, model.v_ln_post_b)
     return x.to(F32) @ model.v_proj
 
@@ -241,6 +248,7 @@ def logits_per_image(model: CLIPModel, img_emb: torch.Tensor, txt_emb: torch.Ten
 # CLIPProcessor normalization constants (HF CLIPImageProcessor defaults).
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+_NORM: dict = {}
 
 
 def preprocess_images(images_u8: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
@@ -254,6 +262,8 @@ def preprocess_images(images_u8: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
         x = torch.stack([
             resize_image(center_crop_square(im), (cfg.image_size, cfg.image_size)) for im in x
         ])
-    mean = torch.as_tensor(IMAGE_MEAN, device=x.device)
-    std = torch.as_tensor(IMAGE_STD, device=x.device)
-    return (x - mean) / std
+    consts = _NORM.get(x.device)
+    if consts is None:  # once a device: a copy from the host waits for the device
+        consts = _NORM[x.device] = (torch.as_tensor(IMAGE_MEAN, device=x.device),
+                                    torch.as_tensor(IMAGE_STD, device=x.device))
+    return (x - consts[0]) / consts[1]

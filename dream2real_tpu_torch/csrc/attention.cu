@@ -75,40 +75,57 @@
 // stays in the tile loop, once per score. The probes visit key tile 0 last,
 // so that the weight registers end as the first columns of p.
 //
-// gemm_tma<RESID> (K2's qkv projection, X3's out-projection): out = bf16(a @
-// W + bias [+ resid]) for a (M x K), W (K x N) row-major. Bound by the tensor
-// cores: the qkv product is 116 GFLOP, 0.117 ms. 128 x 128 output tiles;
-// 64-deep A and W tiles land in 128-byte-swizzled shared memory through TMA
-// (tensor maps built by the launch function; rows past M are zero-filled) in
-// a ring of 3 stages guarded by full / empty mbarriers. Two warpgroups run
-// wgmma m64n128k16 with A K-major and W as the MN-major B operand, one group
-// in flight, and one thread refills a stage as soon as every warp has left
-// it; 96 KB and under 128 registers, so two blocks share an SM and one's
-// epilogue runs under the other's products (a producer warpgroup with
-// setmaxnreg, 4 stages and one block an SM measured 6% slower). The epilogue
-// adds the bias (and the residual) in f32 on the accumulator registers,
-// rounds once to bf16 and stores 16 bytes a thread through a per-warp
-// staging tile. K2's LN1 is a pass of its own (ln_rows: xn = bf16(LN(x)),
-// the reference's rounding place) and the GEMM reads xn like any A.
+// gemm_tma<EPI> (K2's qkv projection, X3's out-projection, and every biased
+// layer of both CLIP towers: qkv on the split path, the out-projection, fc1
+// and fc2): out = epilogue(a @ W + bias [, resid]) for a (M x K), W (K x N)
+// row-major. Bound by the tensor cores: the qkv product is 116 GFLOP, 0.117
+// ms. 128 x 128 output tiles; 64-deep A and W tiles land in
+// 128-byte-swizzled shared memory through TMA (tensor maps built by the
+// launch function; rows past M are zero-filled) in a ring of 3 stages
+// guarded by full / empty mbarriers. Two warpgroups run wgmma m64n128k16 with
+// A K-major and W as the MN-major B operand, one group in flight, and one
+// thread refills a stage as soon as every warp has left it; 96 KB and under
+// 128 registers, so two blocks share an SM and one's epilogue runs under the
+// other's products (a producer warpgroup with setmaxnreg, 4 stages and one
+// block an SM measured 6% slower). The epilogue works on the f32 accumulator
+// registers: the bias in f32, then one of four tails that round at the
+// reference's places (GemmEpi below: bias; bias + residual rounded once;
+// bias, bf16, QuickGELU; bias, bf16, residual), and stores 16 bytes a thread
+// through a per-warp staging tile. cuBLAS cannot take an f32 bias into its
+// accumulator (addmm rounds the bias to bf16 first), which is why the tower
+// runs on this GEMM. K2's LN1 is a pass of its own (ln_rows: xn =
+// bf16(LN(x)), the reference's rounding place) and the GEMM reads xn like
+// any A.
 //
-// attn_exact (K4: 3 captions x 12 heads x 77 tokens, 72 blocks, bound by
-// launch latency) is the WMMA tile loop of the first port slice with the
-// exact softmax: passes for the row max and the f32 row sum, then
-// p = bf16(exp(s - m) / l); out = o. Masked keys (padding, causal) get
+// attn_exact (K4: 3 captions x 12 heads x 77 tokens, bound by launch
+// latency: 0.4 us of bytes). One launch, 64 query rows of one head a block,
+// four warps of 16 rows on mma.sync m16n8k16 from ldmatrix'd shared tiles;
+// Q, K and V rows (only the keys the block may weigh) land through cp.async,
+// every copy in flight at once.
+// For T <= 128 (CLIP's 77-token context) every key fits one tile: S = Q K^T
+// is computed once into registers (16 rows x 128 keys a warp), and the
+// exact softmax runs there: the row max and the f32 sum of exp(s - m) over
+// the four lanes of a quad, then p = bf16(exp(s - m) / l), the reference's
+// rounding place (exp as ex2.approx, 1 / l once a row: an expf and an IEEE
+// division a weight make the kernel 1.7 times slower, as
+// tools/attention_causal_ab.py measures), packed in place into the A
+// fragments of P V (the m16n8
+// accumulator layout of two 8-key tiles is the m16n8k16 A layout), so no
+// score or weight touches shared memory. Longer T (tests only) keeps the
+// exact three passes over key tiles of 128 (row max, row sum, output), S
+// recomputed in registers each time. Masked keys (padding, causal) get
 // weight 0, the same as the reference's -1e9 bias or -0.7*f32max mask.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -167,6 +184,11 @@ __device__ __forceinline__ void wgmma_64x80x16_ss(float (&d)[64], uint64_t da, u
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 // 2^x for x <= 0 with the subnormal results kept: without .ftz the
@@ -267,15 +289,41 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// out (M x N) = bf16(a @ W + bias), or with kResid bf16(f32(resid) + (a @ W +
-// bias)): the product and the bias summed in f32 first, one rounding at the
-// end. map_a: a (M x K) in boxes of 64 (K) x 128 rows; map_w: W (K x N) in
-// boxes of 64 (N) x 64 (K), both 128-byte swizzled. K % 64 == 0,
-// N % 128 == 0.
-// Two warpgroups of 64 rows, 3 stages, two blocks an SM (one's epilogue runs
-// under the other's products); thread 0 refills a stage once every warp has
-// left it.
-template <bool kResid>
+// The epilogues of gemm_tma, on the f32 accumulator y = a @ W + bias (the
+// product and the bias summed in f32, as jnp.dot(..., preferred_element_type
+// = f32) + b):
+//   0 bias             bf16(y): K2's qkv projection
+//   1 bias_resid       bf16(f32(resid) + y), one rounding: the bench's v13
+//                      out-projection (X3)
+//   2 bias_gelu        h = bf16(y), then bf16(h * bf16(sigmoid(1.702 h))), the
+//                      sigmoid in f32: CLIP's fc1 and QuickGELU
+//   3 bias_then_resid  bf16(f32(resid) + f32(bf16(y))): CLIP's out-projection
+//                      and fc2 with the residual add after the layer's own
+//                      rounding, as the reference's x + (a @ W + b).astype(bf16)
+enum GemmEpi { kEpiBias = 0, kEpiBiasResid = 1, kEpiBiasGelu = 2, kEpiBiasThenResid = 3 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The value epilogue kEpi stores for y (and the residual r), before its last
+// bf16 rounding.
+template <int kEpi>
+__device__ __forceinline__ float epilogue(float y, float r) {
+  if (kEpi == kEpiBiasResid) return r + y;
+  if (kEpi == kEpiBiasThenResid) return r + bf16_round(y);
+  if (kEpi == kEpiBiasGelu) {
+    const float h = bf16_round(y);
+    return h * bf16_round(1.0f / (1.0f + expf(-1.702f * h)));  // the product is exact in f32
+  }
+  return y;
+}
+
+// out (M x N) = epilogue kEpi of a @ W + bias for a (M x K), W (K x N)
+// row-major; resid (M x N) for the residual epilogues. map_a: a in boxes of
+// 64 (K) x 128 rows; map_w: W in boxes of 64 (N) x 64 (K), both 128-byte
+// swizzled. K % 64 == 0, N % 128 == 0.
+template <int kEpi>
 __global__ void __launch_bounds__(kGThreads, 2)
     gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
              const float* __restrict__ bias, const bf16* __restrict__ resid, int M, int K, int N,
@@ -342,6 +390,7 @@ __global__ void __launch_bounds__(kGThreads, 2)
   // bytes a row, 16-byte chunks XOR-swizzled by the row).
   unsigned char* stg = gbase + warp * 4096;
   const int mw = m0 + warp * 16;  // this warp's first row (warps 0-7 in row order)
+  constexpr bool kResid = kEpi == kEpiBiasResid || kEpi == kEpiBiasThenResid;
   if (kResid) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -360,13 +409,9 @@ __global__ void __launch_bounds__(kGThreads, 2)
     for (int h = 0; h < 2; ++h) {
       const int r = (lane >> 2) + 8 * h;
       uint32_t* cell = reinterpret_cast<uint32_t*>(stg + r * 256 + ((j ^ (r & 7)) << 4) + quad * 4);
-      float y0 = acc[4 * j + 2 * h] + bj.x, y1 = acc[4 * j + 2 * h + 1] + bj.y;
-      if (kResid) {
-        const uint32_t rv = *cell;
-        y0 = bf16_lo(rv) + y0;
-        y1 = bf16_hi(rv) + y1;
-      }
-      *cell = pack_bf16(y0, y1);
+      const float y0 = acc[4 * j + 2 * h] + bj.x, y1 = acc[4 * j + 2 * h + 1] + bj.y;
+      const uint32_t rv = kResid ? *cell : 0u;
+      *cell = pack_bf16(epilogue<kEpi>(y0, bf16_lo(rv)), epilogue<kEpi>(y1, bf16_hi(rv)));
     }
   }
   __syncwarp();
@@ -654,149 +699,209 @@ int launch_attn(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap&
   return int(cudaGetLastError());
 }
 
-// ------------------------------------------------ K4: exact softmax (WMMA)
+// --------------------------------- K4: exact softmax in registers (mma.sync)
 
-constexpr int kQT = 64;     // query rows per block
-constexpr int kKT = 64;     // keys per tile
-constexpr int kAWarps = 4;  // 16 query rows each
-constexpr int kAThreads = kAWarps * 32;
-constexpr int kLd = kHd + 8;  // bf16 tile row stride
-constexpr int kSLd = kKT + 4;  // f32 score row stride
+constexpr int kQT = 64;       // query rows a block: 4 warps of 16
+constexpr int kXKeys = 128;   // keys a tile: all of them for T <= 128
+constexpr int kAThreads = 128;
+constexpr int kLd = kHd + 8;  // bf16 row stride of the shared tiles (144 bytes)
+constexpr int kExactSmem = (kQT + 2 * kXKeys) * kLd * 2;  // Q, K and V tiles
 
-constexpr size_t kQBytes = size_t(kQT) * kLd * 2;
-constexpr size_t kKBytes = size_t(kKT) * kLd * 2;
-constexpr size_t kSBytes = size_t(kAWarps) * 16 * kSLd * 4;
-constexpr size_t kPBytes = size_t(kAWarps) * 16 * kLd * 2;
-constexpr size_t kExactSmem = kQBytes + 2 * kKBytes + kSBytes + kPBytes;
-
-// Rows [t0, t0 + 64) of one head into a (64 x kLd) tile, zero past T, each
-// element multiplied by `scale` and rounded to bf16 (scale 1 copies).
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, long st,
-                                          int t0, int T, float scale) {
-  for (int i = threadIdx.x; i < 64 * (kHd / 8); i += kAThreads) {
+// Rows [t0, t0 + n) of one head into an (n x kLd) tile at shared address
+// dst, zero past T: 16-byte cp.async copies, all in flight at once (a rows'
+// loop of loads and stores would wait out one memory latency a row).
+__device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* __restrict__ src, long st,
+                                          int t0, int n, int T) {
+  for (int i = threadIdx.x; i < n * (kHd / 8); i += kAThreads) {
     const int r = i / (kHd / 8), c = (i % (kHd / 8)) * 8;
-    __align__(16) bf16 v[8];
-    if (t0 + r < T) {
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src + (t0 + r) * st + c);
-      if (scale != 1.0f) {
+    const bool in = t0 + r < T;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst + (r * kLd + c) * 2),
+                 "l"(in ? src + (t0 + r) * st + c : src), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d (16 x 8 f32) += a (16 x 16 bf16) * b (16 x 8 bf16), the warp's fragments.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// S = Q K^T of this warp's 16 query rows against the first `keys` keys of
+// the tile in sK (a multiple of 16 at most 128, rounded up; the rest of s is
+// left 0): s[n][e] is row g + 8 (e >> 1), key 8 n + 2 t + (e & 1) of the tile
+// (g = lane / 4, t = lane % 4, the mma accumulator layout).
+__device__ __forceinline__ void exact_scores(uint32_t sQ, uint32_t sK, int warp, int lane,
+                                             int keys, float (&s)[16][4]) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16_rn(__bfloat162float(v[e]) * scale);
-      }
-    } else {
+  for (int n = 0; n < 16; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16_rn(0.0f);
+  for (int kk = 0; kk < kHd / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(sQ + ((16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 16 * kk +
+                  8 * (lane >> 4)) * 2, a);
+#pragma unroll
+    for (int np = 0; np < 8; ++np) {
+      if (16 * np >= keys) break;
+      uint32_t b[4];  // K rows as the col-major B of two 8-key column tiles
+      ldsm_x4(sK + ((16 * np + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk +
+                    8 * ((lane >> 3) & 1)) * 2, b);
+      mma16816(s[2 * np], a, b[0], b[1]);
+      mma16816(s[2 * np + 1], a, b[2], b[3]);
     }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = *reinterpret_cast<uint4*>(v);
   }
 }
 
-// S (16 x 64 keys) of this warp's query rows against the key tile in sK,
-// stored to the warp's f32 score buffer.
-__device__ __forceinline__ void scores(const bf16* sQ, const bf16* sK, float* sS, int warp) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kKT / 16];
+// o (16 x 64) += P (16 x keys, bf16 pairs: p[n][0] row g, p[n][1] row g + 8
+// of column tile n) V (the tile in sV).
+__device__ __forceinline__ void exact_pv(uint32_t sV, int lane, int keys, const uint32_t (&p)[16][2],
+                                         float (&o)[8][4]) {
 #pragma unroll
-  for (int n = 0; n < kKT / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+  for (int kk = 0; kk < 8; ++kk) {
+    if (16 * kk >= keys) break;
+    const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1]};
 #pragma unroll
-  for (int kk = 0; kk < kHd; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, sQ + (warp * 16) * kLd + kk, kLd);
-#pragma unroll
-    for (int n = 0; n < kKT / 16; ++n) {
-      // K^T as a column-major B operand: element (d, key) at sK[key * kLd + d].
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, sK + (n * 16) * kLd + kk, kLd);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
+    for (int dp = 0; dp < kHd / 16; ++dp) {
+      uint32_t b[4];  // V rows (key-major) transposed into the B of two 8-wide d tiles
+      ldsm_x4_t(sV + ((16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 16 * dp +
+                      8 * (lane >> 4)) * 2, b);
+      mma16816(o[2 * dp], a, b[0], b[1]);
+      mma16816(o[2 * dp + 1], a, b[2], b[3]);
     }
   }
-#pragma unroll
-  for (int n = 0; n < kKT / 16; ++n)
-    wmma::store_matrix_sync(sS + n * 16, acc[n], kSLd, wmma::mem_row_major);
-  __syncwarp();
 }
 
+// 64 query rows of one (batch, head) a block, 4 warps of 16. T <= 128: one
+// pass; longer T: passes for the row max and the row sum, then the output.
 __global__ void __launch_bounds__(kAThreads)
     attn_exact(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                bf16* __restrict__ out, int T, Strides st, float scale, int causal) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];  // one declaration, one alignment
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw + kQBytes);
-  bf16* sV = reinterpret_cast<bf16*>(smem_raw + kQBytes + kKBytes);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sS = reinterpret_cast<float*>(smem_raw + kQBytes + 2 * kKBytes) + warp * 16 * kSLd;
-  bf16* sP = reinterpret_cast<bf16*>(smem_raw + kQBytes + 2 * kKBytes + kSBytes) +
-             warp * 16 * kLd;
-
+  // The Q, K and V tiles, kLd bf16 a row.
+  const uint32_t sQ = smem_u32(smem_raw), sK = sQ + kQT * kLd * 2, sV = sK + kXKeys * kLd * 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
   const long in_off = b * st.b + h * st.h;
-  load_tile(sQ, q + in_off, st.t, q0, T, scale);
+  const int qw = q0 + 16 * warp;  // this warp's first query row
+  // Keys any row of the block / of this warp may weigh (later ones are masked).
+  const int t_blk = causal ? min(T, q0 + kQT) : T;
+  const int t_warp = causal ? min(T, qw + 16) : T;
+  const int n_kt = (t_blk + kXKeys - 1) / kXKeys;
 
-  // Lane pair (2r, 2r + 1) owns query row r of the warp, 32 key columns each.
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  const int qrow = q0 + warp * 16 + r;
-  int n_kt = (T + kKT - 1) / kKT;
-  if (causal) n_kt = min(n_kt, int(blockIdx.x) + 1);  // later keys are all masked
-
-  float m = -INFINITY, l = 0.0f;
-  for (int kt = 0; kt < n_kt; ++kt) {  // exact row max
-    __syncthreads();
-    load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
-    __syncthreads();
-    scores(sQ, sK, sS, warp);
-    for (int c = c0; c < c0 + 32; ++c) {
-      const int key = kt * kKT + c;
-      if (key < T && (!causal || key <= qrow)) m = fmaxf(m, sS[r * kSLd + c]);
-    }
-    __syncwarp();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  for (int kt = 0; kt < n_kt; ++kt) {  // f32 row sum of exp(s - m)
-    __syncthreads();
-    load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
-    __syncthreads();
-    scores(sQ, sK, sS, warp);
-    for (int c = c0; c < c0 + 32; ++c) {
-      const int key = kt * kKT + c;
-      if (key < T && (!causal || key <= qrow)) l += expf(sS[r * kSLd + c] - m);
-    }
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[kHd / 16];
+  float s[16][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[8][4];
 #pragma unroll
-  for (int n = 0; n < kHd / 16; ++n) wmma::fill_fragment(oacc[n], 0.0f);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile(sK, k + in_off, st.t, kt * kKT, T, 1.0f);
-    load_tile(sV, v + in_off, st.t, kt * kKT, T, 1.0f);
-    __syncthreads();
-    scores(sQ, sK, sS, warp);
-    for (int c = c0; c < c0 + 32; ++c) {
-      const int key = kt * kKT + c;
-      float p = 0.0f;
-      if (key < T && (!causal || key <= qrow)) p = expf(sS[r * kSLd + c] - m) / l;
-      sP[r * kLd + c] = __float2bfloat16_rn(p);
-    }
-    __syncwarp();
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  uint32_t p[16][2];
+  // Element (n, e) of tile kt: masked keys (padding, causal) get weight 0.
+  auto valid = [&](int kt, int n, int e) {
+    const int key = kt * kXKeys + 8 * n + 2 * t + (e & 1), row = qw + g + 8 * (e >> 1);
+    return key < T && (!causal || key <= row);
+  };
+  auto tile_keys = [&](int kt) { return min(kXKeys, t_warp - kt * kXKeys); };
+  // exp(s - m) in place, as ex2.approx.ftz of (s - m) log2(e) (expf is
+  // slower; a weight below 2^-126 of the row's largest moves no output),
+  // over the column tiles P V reads (the 16-key groups that hold the warp's
+  // keys); with sum, l += it in f32.
+  auto exps = [&](int kt, bool sum) {
+    constexpr float kLog2e = 1.4426950408889634f;
 #pragma unroll
-    for (int kk = 0; kk < kKT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sP + kk, kLd);
+    for (int n = 0; n < 16; ++n) {
+      if (16 * (n >> 1) >= tile_keys(kt)) break;
 #pragma unroll
-      for (int n = 0; n < kHd / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, sV + kk * kLd + n * 16, kLd);
-        wmma::mma_sync(oacc[n], a, bv, oacc[n]);
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = valid(kt, n, e) ? ex2_ftz((s[n][e] - m[e >> 1]) * kLog2e) : 0.0f;
+        l[e >> 1] += sum ? s[n][e] : 0.0f;
       }
     }
-  }
-
+  };
+  auto quad = [&](float (&x)[2], bool is_max) {
 #pragma unroll
-  for (int n = 0; n < kHd / 16; ++n)
-    wmma::store_matrix_sync(sS + n * 16, oacc[n], kSLd, wmma::mem_row_major);
-  __syncwarp();
-  if (qrow < T) {
-    bf16* orow = out + b * st.ob + h * st.oh + long(qrow) * st.ot;
-    for (int c = c0; c < c0 + 32; ++c) orow[c] = __float2bfloat16_rn(sS[r * kSLd + c]);
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float y = __shfl_xor_sync(0xffffffffu, x[i], off);
+        x[i] = is_max ? fmaxf(x[i], y) : x[i] + y;
+      }
+  };
+  // Key rows of tile kt the block reads: its keys, to a multiple of 16.
+  auto kv_rows = [&](int kt) { return (min(kXKeys, t_blk - kt * kXKeys) + 15) & ~15; };
+
+  // Three passes over the key tiles: 0 the exact row max, 1 the f32 row sum
+  // of exp(s - m), 2 p = bf16(exp(s - m) / l) (the reference's rounding
+  // place) and O += P V. With one tile (T <= 128) the tile lands and S is
+  // computed once, in pass 0; passes 1 and 2 work on its registers. Each
+  // piece of the body appears once in the code.
+  const bool one = n_kt == 1;
+  copy_rows(sQ, q + in_off, st.t, q0, kQT, T);
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int kt = 0; kt < n_kt; ++kt) {
+      if (pass == 0 || !one) {
+        __syncthreads();  // every warp is done with the last tile
+        copy_rows(sK, k + in_off, st.t, kt * kXKeys, kv_rows(kt), T);
+        if (pass == 2 || one) copy_rows(sV, v + in_off, st.t, kt * kXKeys, kv_rows(kt), T);
+        copies_landed();
+        exact_scores(sQ, sK, warp, lane, tile_keys(kt), s);
+        // The scale is a power of two: scaling the f32 scores is the same
+        // arithmetic as the reference's bf16(q * scale).
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+      }
+      if (pass == 0) {
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          if (16 * (n >> 1) >= tile_keys(kt)) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (valid(kt, n, e)) m[e >> 1] = fmaxf(m[e >> 1], s[n][e]);
+        }
+      } else if (pass == 1 || !one) {
+        exps(kt, pass == 1);
+      }
+      if (pass == 2) {
+        // One IEEE division a row, then products (a division a weight is
+        // slower).
+        const float inv0 = 1.0f / l[0], inv1 = 1.0f / l[1];
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          if (16 * (n >> 1) >= tile_keys(kt)) break;  // P V reads no further
+          p[n][0] = pack_bf16(s[n][0] * inv0, s[n][1] * inv0);
+          p[n][1] = pack_bf16(s[n][2] * inv1, s[n][3] * inv1);
+        }
+        exact_pv(sV, lane, tile_keys(kt), p, o);
+      }
+    }
+    if (pass == 0) quad(m, true);
+    if (pass == 1) quad(l, false);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = qw + g + 8 * e;
+    if (row >= T) continue;
+    bf16* orow = out + b * st.ob + h * st.oh + long(row) * st.ot;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) = pack_bf16(o[n][2 * e], o[n][2 * e + 1]);
   }
 }
 
@@ -858,7 +963,7 @@ bool make_head_map(CUtensorMap* map, const void* ptr, int B, int H, int T, const
          CUDA_SUCCESS;
 }
 
-template <bool kResid>
+template <int kEpi>
 int launch_gemm(const void* a, const void* w, const void* bias, const void* resid, int M, int K,
                 int N, void* out, cudaStream_t stream) {
   if (K % kGK || N % kGN) return int(cudaErrorInvalidValue);
@@ -870,10 +975,10 @@ int launch_gemm(const void* a, const void* w, const void* bias, const void* resi
   bf16* op = static_cast<bf16*>(out);
   constexpr int smem = kGStages * kGStage + 16 * kGStages;  // the ring and its barriers
   static int configured = -1;
-  cudaError_t err = allow_smem(gemm_tma<kResid>, smem, &configured);
+  cudaError_t err = allow_smem(gemm_tma<kEpi>, smem, &configured);
   if (err != cudaSuccess) return int(err);
   dim3 grid(N / kGN, (M + kGM - 1) / kGM);
-  gemm_tma<kResid><<<grid, kGThreads, smem, stream>>>(map_a, map_w, bp, rp, M, K, N, op);
+  gemm_tma<kEpi><<<grid, kGThreads, smem, stream>>>(map_a, map_w, bp, rp, M, K, N, op);
   return int(cudaGetLastError());
 }
 
@@ -892,7 +997,9 @@ extern "C" int d2r_attention(const void* q, const void* k, const void* v, void* 
   const Strides s{sb, sh, st, osb, osh, ost};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (mode == 2) {
-    if (grid_x * kQT < T || smem != int(kExactSmem)) return int(cudaErrorInvalidValue);
+    int exponent = 0;
+    if (grid_x * kQT < T || smem != kExactSmem || frexpf(scale, &exponent) != 0.5f)
+      return int(cudaErrorInvalidValue);  // the kernel scales scores, exact for powers of two
     static int configured = -1;
     cudaError_t err = allow_smem(attn_exact, smem, &configured);
     if (err != cudaSuccess) return int(err);
@@ -933,16 +1040,24 @@ extern "C" int d2r_ln_qkv(const void* x, const void* g, const void* beta, const 
                                        static_cast<bf16*>(xn));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return launch_gemm<false>(xn, w, bias, nullptr, M, K, N, qkv, cs);
+  return launch_gemm<kEpiBias>(xn, w, bias, nullptr, M, K, N, qkv, cs);
 }
 
-// out (M x N) = bf16(f32(resid) + (a @ W + bias)) for a (M x K) bf16, W
-// (K x N) bf16, bias (N,) f32, resid (M x N) bf16: the out-projection, bias
-// and residual of the bench's v13 body. K % 64 == 0 and N % 128 == 0.
-extern "C" int d2r_gemm_bias_residual(const void* a, const void* w, const void* bias,
-                                      const void* resid, int M, int K, int N, void* out,
-                                      void* stream) {
+// out (M x N) = epilogue `epi` (GemmEpi) of a @ W + bias for a (M x K) bf16,
+// W (K x N) bf16, bias (N,) f32, and resid (M x N) bf16 for the residual
+// epilogues (null otherwise). K % 64 == 0 and N % 128 == 0.
+extern "C" int d2r_gemm(const void* a, const void* w, const void* bias, const void* resid, int M,
+                        int K, int N, int epi, void* out, void* stream) {
   if (M <= 0) return 0;
-  return launch_gemm<true>(a, w, bias, resid, M, K, N, out,
-                           static_cast<cudaStream_t>(stream));
+  const bool wants_resid = epi == kEpiBiasResid || epi == kEpiBiasThenResid;
+  if (bias == nullptr || wants_resid != (resid != nullptr)) return int(cudaErrorInvalidValue);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (epi) {
+    case kEpiBias: return launch_gemm<kEpiBias>(a, w, bias, resid, M, K, N, out, cs);
+    case kEpiBiasResid: return launch_gemm<kEpiBiasResid>(a, w, bias, resid, M, K, N, out, cs);
+    case kEpiBiasGelu: return launch_gemm<kEpiBiasGelu>(a, w, bias, resid, M, K, N, out, cs);
+    case kEpiBiasThenResid:
+      return launch_gemm<kEpiBiasThenResid>(a, w, bias, resid, M, K, N, out, cs);
+    default: return int(cudaErrorInvalidValue);
+  }
 }

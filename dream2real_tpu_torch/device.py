@@ -33,17 +33,14 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(BF16).to(F32)
 
 
-def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """bf16 x bf16 -> f32 matmul for the model's plain (non-kernel) layers.
-
-    CPU: exact f32 products of the bf16-rounded inputs, f32 sums — JAX's
-    ``preferred_element_type=f32`` up to summation order. CUDA: cuBLAS bf16
-    GEMM with f32 accumulation; its output is rounded to bf16 once before the
-    caller's bias add (one extra rounding, at most one bf16 ulp).
-    """
+def dot_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 -> bf16 with f32 accumulation and one rounding, for the
+    plain layers that have no bias (CLIP's patchify, the field's colour
+    layers). CUDA: a cuBLAS bf16 GEMM; CPU: exact f32 products of the
+    bf16-rounded inputs and f32 sums, rounded once."""
     if x.is_cuda:
-        return torch.matmul(x.to(BF16), w.to(BF16)).to(F32)
-    return torch.matmul(x.to(BF16).to(F32), w.to(BF16).to(F32))
+        return torch.matmul(x.to(BF16), w.to(BF16))
+    return dot_exact(x, w).to(BF16)
 
 
 def dot_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -51,7 +51,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from dream2real_tpu_torch.device import BF16, F32, bf16_round, dot_exact, dot_f32, resolve_device
+from dream2real_tpu_torch.device import BF16, F32, bf16_round, dot_exact, resolve_device
 from dream2real_tpu_torch.ops import attention as A
 
 # The floor probes and the kernel mode each launches.
@@ -249,8 +249,8 @@ def _maxrel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 def layer_functions(H: int, D: int, gen: torch.Generator, dev: torch.device) -> dict:
     """The composed layers ``_layer_bench`` times, on weights drawn from
-    ``gen``: each maps the residual stream x (B, T, W) bf16 to the next one
-    (f32 where the reference's sum promotes)."""
+    ``gen``: each maps the residual stream x (B, T, W) bf16 to the next one,
+    in bf16."""
     W = H * D
 
     def randn(*shape):
@@ -271,7 +271,7 @@ def layer_functions(H: int, D: int, gen: torch.Generator, dev: torch.device) -> 
         return A.layer_norm(x, g, bb)
 
     def qkv_of(x):
-        return (dot_f32(ln(x), wqkv) + bqkv).to(BF16)
+        return A.linear_bias(ln(x), wqkv, bqkv)
 
     def baseline_layer(x):
         return x + mha_v8_projlayout(qkv_of(x), n_heads=H, kernel="v9")
@@ -279,29 +279,28 @@ def layer_functions(H: int, D: int, gen: torch.Generator, dev: torch.device) -> 
     def fused_layer(x):
         return x + block_fused(x, wqkv, bqkv, g, bb, n_heads=H)
 
+    # x + (a @ wo + bo) in f32, as the reference's sub-blocks return it, and
+    # rounded once to bf16 (the GEMM's bias + residual epilogue): the value
+    # its next consumer takes.
     def baseline_subblock(x):
-        a = mha_v8_projlayout(qkv_of(x), n_heads=H, kernel="v9")
-        return x.to(F32) + (dot_f32(a, wo) + bo)
+        return A.proj_residual(mha_v8_projlayout(qkv_of(x), n_heads=H, kernel="v9"), wo, bo, x)
 
     def v12_subblock(x):
-        a = block_fused(x, wqkv, bqkv, g, bb, n_heads=H)
-        return x.to(F32) + (dot_f32(a, wo) + bo)
+        return A.proj_residual(block_fused(x, wqkv, bqkv, g, bb, n_heads=H), wo, bo, x)
 
     def v13_subblock(x):
         return block_fused_o(x, wqkv, bqkv, g, bb, wo, bo, n_heads=H)
 
     def plain_mlp(x):
-        # The port's plain tower MLP (clip/model.py): fc1 rounds to bf16
-        # before QuickGELU.
-        h = (dot_f32(ln(x), w1) + b1).to(BF16)
-        h = h * torch.sigmoid(1.702 * h.to(F32)).to(BF16)
-        return x + (dot_f32(h, w2) + b2).to(BF16)
+        # The tower's MLP (clip/model.py): fc1 rounds to bf16 before
+        # QuickGELU, fc2 before the residual add.
+        return A.linear_bias_then_resid(A.linear_bias_gelu(ln(x), w1, b1), w2, b2, x)
 
     def block_baseline(x):
-        return plain_mlp(baseline_subblock(x).to(BF16))
+        return plain_mlp(baseline_subblock(x))
 
     def block_v13_xla_mlp(x):
-        return plain_mlp(v13_subblock(x).to(BF16))
+        return plain_mlp(v13_subblock(x))
 
     return {
         "baseline_layer": baseline_layer, "fused_layer": fused_layer,

@@ -67,7 +67,7 @@ def _corners(obj_aabb, device) -> torch.Tensor:
 def crop_window(T_WC_2: torch.Tensor, obj_aabb, intrinsics, res: int, crop: int):
     """Pixel windows (v0, u0) of crop x crop boxes centred on the projected
     object AABB; batched over the leading dims of T_WC_2 (..., 4, 4)."""
-    K = torch.as_tensor(np.asarray(intrinsics), dtype=F32, device=T_WC_2.device)
+    K = torch.as_tensor(intrinsics, dtype=F32, device=T_WC_2.device)
     T_CW = pose_inverse(T_WC_2)
     corners = _corners(obj_aabb, T_WC_2.device)
     cam = corners @ T_CW[..., :3, :3].transpose(-1, -2) + T_CW[..., None, :3, 3]
@@ -167,15 +167,16 @@ def render_pose_cropped(
 
     The flagship field goes through K1, all P poses in one launch
     (``packed`` = march_kernel.pack_params(fg), computed here if absent);
-    any other field through the plain render_rays."""
+    any other field through the plain render_rays. With ``intrinsics`` and
+    ``obj_aabb`` on the device and ``packed`` given, the K1 path issues its
+    work without waiting for the device."""
     P = T_WO_2.shape[0]
     res = dirs_cam.shape[0]
     T_WC_2, rows, cols, dirs = crop_rays(dirs_cam, intrinsics, obj_aabb, crop, T_WO_1, T_WC_1,
                                          T_WO_2)
     if supports(fg.cfg, settings):
-        out = march_rays_fused(
-            packed or pack_params(fg), fg.cfg, T_WC_2[:, :3, 3], dirs, obj_aabb, settings
-        )
+        out = march_rays_fused(packed or pack_params(fg), T_WC_2[:, :3, 3], dirs, obj_aabb,
+                               settings)
     else:
         origins = T_WC_2[:, None, :3, 3].expand(dirs.shape)
         out = render_rays(fg, origins, dirs, settings, march_aabb=obj_aabb)

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from dream2real_tpu_torch.device import BF16, F32, dot_f32, resolve_device
+from dream2real_tpu_torch.device import BF16, F32, dot_bf16, dot_exact, resolve_device
 
 
 class HashGridConfig(NamedTuple):
@@ -183,7 +183,7 @@ def density_fn(field: NGPField, positions: torch.Tensor):
             h = torch.cat([h, enc0], dim=-1)
         w = getattr(field, f"trunk_w{i}")
         b = getattr(field, f"trunk_b{i}").to(BF16).to(F32)
-        h = dot_f32(h, w) + b
+        h = dot_exact(h, w) + b  # f32 products and sums, one rounding below
         if i < cfg.mlp_depth - 1:
             h = torch.relu(h)
         h = h.to(BF16)
@@ -198,10 +198,9 @@ def color_fn(field: NGPField, geo_feat: torch.Tensor, dirs: torch.Tensor) -> tor
     cfg = field.cfg
     x = torch.cat([geo_feat.to(BF16), sh_encode_deg4(dirs).to(BF16)], dim=-1)
     for i in range(cfg.n_color_layers):
-        x = dot_f32(x, getattr(field, f"color_w{i}"))
+        x = dot_bf16(x, getattr(field, f"color_w{i}"))  # no bias: relu commutes with rounding
         if i < cfg.n_color_layers - 1:
             x = torch.relu(x)
-        x = x.to(BF16)
     return torch.sigmoid(x.to(F32))
 
 

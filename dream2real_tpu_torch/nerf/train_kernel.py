@@ -46,7 +46,7 @@ import torch
 
 from dream2real_tpu_torch import build
 from dream2real_tpu_torch.device import BF16, F32, bf16_round, dot_exact
-from dream2real_tpu_torch.nerf.march_kernel import _fma, supports
+from dream2real_tpu_torch.nerf.march_kernel import _fma, image_index, supports
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField, posenc_freqs, sh_encode_deg4
 from dream2real_tpu_torch.nerf.render import RenderSettings, ray_aabb, sample_pdf
 
@@ -132,26 +132,6 @@ def train_geometry(n_rays: int, S: int, n_sm: int) -> dict:
             "bias_rows": chunk_groups * steps, "part_floats": parts * N_G}
 
 
-def _image_index() -> torch.Tensor:
-    """Gather index of the wgmma image: for each bf16 of it, its index into
-    the packed weights, or N_W (a zero) for padding."""
-    offs, off = {}, 0
-    for name, k, n in W_LAYOUT:
-        offs[name] = (off, n)
-        off += k * n
-    parts = []
-    for name, k0, rows, n0, cols, _ in WGMMA_JOBS:
-        base, n = offs[name]
-        r = torch.arange(rows)[:, None]
-        c = torch.arange(cols)[None, :]
-        src = torch.where(n0 + c < n, base + (k0 + r) * n + n0 + c, torch.full_like(r * c, N_W))
-        dst = (c // 64) * rows * 64 + r * 64 + (((c % 64) // 8) ^ (r % 8)) * 8 + c % 8
-        idx = torch.empty(rows * cols, dtype=torch.long)
-        idx[dst.reshape(-1)] = src.reshape(-1)
-        parts.append(idx)
-    return torch.cat(parts)
-
-
 _IMAGE_INDEX: dict = {}
 
 
@@ -160,7 +140,7 @@ def wgmma_image(w: torch.Tensor) -> torch.Tensor:
     WGMMA_JOBS one after another, IMAGE_BYTES in all."""
     idx = _IMAGE_INDEX.get(w.device)
     if idx is None:
-        idx = _IMAGE_INDEX[w.device] = _image_index().to(w.device)
+        idx = _IMAGE_INDEX[w.device] = image_index(W_LAYOUT, WGMMA_JOBS).to(w.device)
     return torch.cat([w, w.new_zeros(1)])[idx]
 
 

@@ -14,15 +14,21 @@ Each wrapper takes its plain PyTorch version for CPU tensors and launches
   strides.
 - ``head_attention``: the head-split launch in any softmax or probe mode,
   and ``proj_residual``: the out-projection GEMM with its bias + residual
-  epilogue; both serve the attention bench
+  epilogue, rounded once; both serve the attention bench
   (``experiments/bench_attention.py``).
+- ``linear_bias``, ``linear_bias_gelu``, ``linear_bias_then_resid``: the
+  biased layers of both CLIP towers on the same GEMM, its f32 accumulators
+  handed to an epilogue that rounds at the reference's places (qkv on the
+  split path; fc1 with QuickGELU; the out-projection and fc2 with the
+  residual add).
 
 The attention kernel (every mode but ``exact``) works on blocks of 128 query
 rows, two warpgroups of 64, against key tiles of 128 that TMA brings into a
 ring in shared memory; scores and weights stay in registers between its two
 wgmma products. ``launch_geometry`` is where its
 grid, ring depth and shared memory are decided; the C launch function takes
-them from there. K4 keeps the 64 x 64 WMMA tile loop.
+them from there. K4 is a kernel of its own: for T <= 128 one tile of keys,
+its scores and exact softmax in registers (mma.sync).
 
 Softmax: by default the constant clamp ``exp(min(s, 70) - 70)`` (shift-
 invariant, identical to max-subtraction unless a logit exceeds 70);
@@ -67,9 +73,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
 Q_ROWS, KEY_TILE, TILE_BYTES = 128, 128, 128 * 64 * 2
 STAGES, BARRIER_BYTES = 3, 64  # the ring of K / V tiles and its full / empty barriers
 SMEM_LIMIT = 232_448
-# K4's kernel: 64 query rows a block, and its fixed buffers (Q, K, V tiles of
-# 64 x 72 bf16, 4 x 16 x 68 f32 scores, 4 x 16 x 72 bf16 weights).
-EXACT_Q_ROWS, EXACT_SMEM = 64, 3 * 64 * 72 * 2 + 4 * 16 * 68 * 4 + 4 * 16 * 72 * 2
+# K4's kernel: 64 query rows a block, key tiles of 128, and its shared tiles
+# (Q 64, K and V 128 rows of 72 bf16).
+EXACT_Q_ROWS, EXACT_KEYS, EXACT_SMEM = 64, 128, (64 + 2 * 128) * 72 * 2
 
 
 def launch_geometry(T: int, mode: int) -> dict:
@@ -79,12 +85,14 @@ def launch_geometry(T: int, mode: int) -> dict:
     cover T; the ring holds ``stages`` stages of one K and one V tile (a pass
     for the row max doubles the tile loads, ``n_jobs``); ``smem_bytes`` is
     the Q tile, the ring and its barriers. The exact mode (K4) has no
-    ring."""
+    ring; its key tiles are taken once for T <= 128 (one tile) and three
+    times (row max, row sum, output) past it."""
     if T < 1:
         raise ValueError(f"attention needs at least one token, got T = {T}")
     if mode == MODES["exact"]:
-        return {"q_rows": EXACT_Q_ROWS, "key_tile": 64, "grid_x": -(-T // EXACT_Q_ROWS),
-                "n_key_tiles": -(-T // 64), "n_jobs": 3 * -(-T // 64), "stages": 0,
+        n_kt = -(-T // EXACT_KEYS)
+        return {"q_rows": EXACT_Q_ROWS, "key_tile": EXACT_KEYS, "grid_x": -(-T // EXACT_Q_ROWS),
+                "n_key_tiles": n_kt, "n_jobs": 1 if n_kt == 1 else 3 * n_kt, "stages": 0,
                 "smem_bytes": EXACT_SMEM}
     n_kt = -(-T // KEY_TILE)
     n_jobs = 2 * n_kt if mode in (MODES["maxsub"], MODES["probe_softmax"]) else n_kt
@@ -97,7 +105,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _ARGTYPES = {
     "d2r_attention": [_P] * 4 + [_I] * 3 + [_L] * 6 + [ctypes.c_float] + [_I] * 5 + [_P],
     "d2r_ln_qkv": [_P] * 5 + [_I] * 3 + [ctypes.c_float] + [_P] * 3,
-    "d2r_gemm_bias_residual": [_P] * 4 + [_I] * 3 + [_P] * 2,
+    "d2r_gemm": [_P] * 4 + [_I] * 4 + [_P] * 2,
 }
 _FNS: dict = {}
 
@@ -312,7 +320,33 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False)
 mha.launches = 0
 
 
-# ------------------------------------------- out-projection + residual (X3)
+# ------------------------------------- the GEMM with f32 epilogues (X3, towers)
+
+# Epilogues of csrc/attention.cu's GEMM (GemmEpi), on y = a @ W + b in f32.
+EPILOGUES = {"bias": 0, "bias_resid": 1, "bias_gelu": 2, "bias_then_resid": 3}
+
+
+def _gemm(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, resid, epilogue: str,
+          who: str) -> torch.Tensor:
+    """a (..., K) bf16 @ w (K, N) bf16 + b (N,) f32 through ``epilogue`` on
+    the card -> (..., N) bf16; resid (..., N) bf16 for the residual
+    epilogues. K % 64 == 0 and N % 128 == 0."""
+    K, N = a.shape[-1], w.shape[-1]
+    dev = a.device
+    if K % 64 or N % 128:
+        raise ValueError(f"{who}: unsupported widths {K} -> {N}")
+    lead = tuple(a.shape[:-1])
+    _check(f"{who}: a", a, BF16, (*lead, K), dev)
+    _check(f"{who}: w", w, BF16, (K, N), dev)
+    _check(f"{who}: b", b, F32, (N,), dev)
+    if resid is not None:
+        _check(f"{who}: resid", resid, BF16, (*lead, N), dev)
+    out = torch.empty(*lead, N, dtype=BF16, device=dev)
+    err = _fn("d2r_gemm")(
+        build.ptr(a), build.ptr(w), build.ptr(b), None if resid is None else build.ptr(resid),
+        a.numel() // K, K, N, EPILOGUES[epilogue], build.ptr(out), build.stream_ptr(dev))
+    build.check(err, f"gemm ({epilogue})")
+    return out
 
 
 def proj_residual_plain(a: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
@@ -330,22 +364,69 @@ def proj_residual(a: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
     bf16(x + a @ wo + bo), (B, T, W)."""
     if not a.is_cuda:
         return proj_residual_plain(a, wo, bo, x)
-    B, T, W = a.shape
-    dev = a.device
-    N = wo.shape[1]
-    if W % 64 or N % 128:
-        raise ValueError(f"proj_residual: unsupported widths {W} -> {N}")
-    _check("proj_residual: a", a, BF16, (B, T, W), dev)
-    _check("proj_residual: wo", wo, BF16, (W, N), dev)
-    _check("proj_residual: bo", bo, F32, (N,), dev)
-    _check("proj_residual: x", x, BF16, (B, T, N), dev)
-    out = torch.empty(B, T, N, dtype=BF16, device=dev)
-    err = _fn("d2r_gemm_bias_residual")(
-        build.ptr(a), build.ptr(wo), build.ptr(bo), build.ptr(x), B * T, W, N, build.ptr(out),
-        build.stream_ptr(dev))
-    build.check(err, "gemm_bias_residual")
+    out = _gemm(a, wo, bo, x, "bias_resid", "proj_residual")
     proj_residual.launches += 1
     return out
 
 
 proj_residual.launches = 0
+
+
+def linear_bias_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16(x @ w + b), the product and the bias in f32 (the reference's
+    (jnp.dot(..., preferred_element_type=f32) + b).astype(bf16))."""
+    return (dot_exact(x, w) + b.to(F32)).to(BF16)
+
+
+def linear_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A biased layer of the towers: x (..., K) bf16, w (K, N) bf16, b (N,)
+    f32 -> bf16(x @ w + b), rounded once."""
+    if not x.is_cuda:
+        return linear_bias_plain(x, w, b)
+    out = _gemm(x, w, b, None, "bias", "linear_bias")
+    linear_bias.launches += 1
+    return out
+
+
+linear_bias.launches = 0
+
+
+def linear_bias_gelu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fc1 and QuickGELU as the reference's _mlp_block: h = bf16(x @ w + b),
+    then h * bf16(sigmoid(1.702 h)) with the sigmoid in f32, in bf16."""
+    h = linear_bias_plain(x, w, b)
+    return h * torch.sigmoid(1.702 * h.to(F32)).to(BF16)
+
+
+def linear_bias_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fc1 + QuickGELU of the towers as one GEMM: x (..., K) bf16 -> (..., N)
+    bf16, rounded where ``linear_bias_gelu_plain`` rounds."""
+    if not x.is_cuda:
+        return linear_bias_gelu_plain(x, w, b)
+    out = _gemm(x, w, b, None, "bias_gelu", "linear_bias_gelu")
+    linear_bias_gelu.launches += 1
+    return out
+
+
+linear_bias_gelu.launches = 0
+
+
+def linear_bias_then_resid_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                                 resid: torch.Tensor) -> torch.Tensor:
+    """resid + bf16(x @ w + b) in bf16: the layer rounds first, then the
+    residual add rounds (the reference's x + (a @ W + b).astype(bf16))."""
+    return resid + linear_bias_plain(x, w, b)
+
+
+def linear_bias_then_resid(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           resid: torch.Tensor) -> torch.Tensor:
+    """The towers' out-projection or fc2 and the residual add as one GEMM:
+    x (..., K) bf16, resid (..., N) bf16 -> bf16(resid + bf16(x @ w + b))."""
+    if not x.is_cuda:
+        return linear_bias_then_resid_plain(x, w, b, resid)
+    out = _gemm(x, w, b, resid, "bias_then_resid", "linear_bias_then_resid")
+    linear_bias_then_resid.launches += 1
+    return out
+
+
+linear_bias_then_resid.launches = 0

@@ -59,6 +59,12 @@ def make_imagine_and_score(
         raise NotImplementedError("multi-GPU pose sharding is not ported yet")
     dev = resolve_device(device)
     dirs_cam = dirs_cam.to(device=dev, dtype=F32)
+    # On the device once, so that a clip group's render copies nothing from
+    # the host (a copy from pageable memory waits for the device).
+    if obj_aabb is not None:
+        obj_aabb = tuple(torch.as_tensor(v, dtype=F32, device=dev) for v in obj_aabb)
+    if intrinsics is not None:
+        intrinsics = torch.as_tensor(intrinsics, dtype=F32, device=dev)
     res = dirs_cam.shape[0]
     rc = row_chunk if res % max(row_chunk, 1) == 0 else 0
     use_crop = bool(fg_crop) and obj_aabb is not None

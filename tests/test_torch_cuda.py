@@ -16,6 +16,63 @@ from dream2real_tpu_torch.ops import attention as att
 
 pytestmark = pytest.mark.cuda
 
+# The double-rounding witness: a row [1, 1] against a weight column
+# [1, 2^-8 - 2^-16] (both exact in bf16) gives acc = 1 + 2^-8 - 2^-16, and a
+# bias of 2^-9 puts acc + b past the midpoint 1 + 2^-8: one rounding,
+# bf16(acc + b), is 1 + 2^-7; two, bf16(bf16(acc) + b), give 1.
+WITNESS_C, WITNESS_B = 2.0**-8 - 2.0**-16, 2.0**-9
+
+
+def witness_block(W: int = 128) -> dict:
+    """A tower block (the reference's parameter tree, f32 numpy) whose biased
+    layers each meet the witness: LN1 and LN2 have gain 0 and bias [1, 1, 0,
+    ...], so their outputs are exactly that row; q = k = 0, so attention
+    averages v, which every token shares; v's column 0 is the qkv witness
+    (v1 = v2 = 1), the out-projection's column 3 the proj witness over
+    [v1, v2] and its column 5 copies v0, fc1's column 0 the fc1 witness and
+    fc2's column 4 copies QuickGELU of it. With x = 0.25 at column 3 and 0
+    elsewhere, one rounding everywhere gives columns 3, 4, 5 = 1.2578125,
+    gelu(1 + 2^-7), 1 + 2^-7; a second rounding gives 1.25, gelu(1), 1."""
+    def z(*shape):
+        return np.zeros(shape, np.float32)
+
+    row = z(W)
+    row[:2] = 1.0
+    p = {"ln1_g": z(W), "ln1_b": row.copy(), "ln2_g": z(W), "ln2_b": row.copy(),
+         "qkv": {"w": z(W, 3 * W), "b": z(3 * W)}, "proj": {"w": z(W, W), "b": z(W)},
+         "fc1": {"w": z(W, 4 * W), "b": z(4 * W)}, "fc2": {"w": z(4 * W, W), "b": z(W)}}
+    v = 2 * W
+    p["qkv"]["w"][:2, v] = 1.0, WITNESS_C
+    p["qkv"]["b"][v] = WITNESS_B
+    p["qkv"]["w"][0, v + 1] = p["qkv"]["w"][0, v + 2] = 1.0
+    p["proj"]["w"][1:3, 3] = 1.0, WITNESS_C
+    p["proj"]["b"][3] = WITNESS_B
+    p["proj"]["w"][0, 5] = 1.0
+    p["fc1"]["w"][:2, 0] = 1.0, WITNESS_C
+    p["fc1"]["b"][0] = WITNESS_B
+    p["fc2"]["w"][0, 4] = 1.0
+    return p
+
+
+def witness_input(W: int = 128, T: int = 16) -> np.ndarray:
+    x = np.zeros((1, T, W), np.float32)
+    x[..., 3] = 0.25
+    return x
+
+
+def port_block(p: dict, device):
+    """The port's Block holding the parameter tree p."""
+    from dream2real_tpu_torch.clip import model as cm
+
+    blk = cm.Block(p["ln1_g"].shape[0], device)
+    with torch.no_grad():
+        for name, t in blk.named_parameters():
+            node = p
+            for part in name.split("."):
+                node = node[part]
+            t.copy_(torch.as_tensor(node))
+    return blk
+
 
 @pytest.fixture
 def dev():
@@ -24,38 +81,105 @@ def dev():
     return torch.device("cuda")
 
 
-def test_march_kernel_matches_plain(dev):
+def _march_case(dev, n_rays, seed=0, miss=1 / 3):
+    """A seeded flagship field's packed weights and two poses of n_rays crop
+    rays each, `miss` of them aimed off the box; -> (packed, origins, dirs,
+    march box (lo, hi), settings)."""
     cfg = NGPConfig(aabb_min=(0.0, -0.6, -0.5), aabb_max=(1.1, 0.6, 0.9))
     st = RenderSettings(n_coarse=20, n_fine=0, near=0.05, far=2.0)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     packed = mk.pack_params(init_ngp_params(cfg, gen, device=dev))
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     origins = torch.tensor([[0.5, 0.0, -0.4], [0.45, 0.05, -0.35]], device=dev)
-    # 300 rays a pose, not a multiple of the kernel's 128-ray tile; a third
-    # of them miss the box.
-    tgt = rng.uniform([0.3, -0.2, 0.0], [0.7, 0.2, 0.3], size=(2, 300, 3))
-    tgt[:, 200:] += 5.0
+    tgt = rng.uniform([0.3, -0.2, 0.0], [0.7, 0.2, 0.3], size=(2, n_rays, 3))
+    tgt[:, : int(n_rays * miss)] += 5.0
     d = torch.tensor(tgt, dtype=torch.float32, device=dev) - origins[:, None]
     d = d / d[..., 2:3]
-    lo, hi = (0.3, -0.2, 0.0), (0.7, 0.2, 0.3)
-    # Every ray, misses included, as the kernel also takes them.
-    t0, t1 = ray_aabb(origins[:, None], d, lo, hi)
-    box = torch.tensor(cfg.aabb_min + cfg.aabb_max + lo + hi, device=dev)
-    args = (origins[:, None].expand(d.shape).reshape(-1, 3).contiguous(),
-            d.reshape(-1, 3).contiguous(), t0.clamp(min=st.near).reshape(-1).contiguous(),
-            t1.clamp(max=st.far).reshape(-1).contiguous(), box, *packed, 20,
-            st.min_transmittance)
+    return packed, origins, d, ((0.3, -0.2, 0.0), (0.7, 0.2, 0.3)), st
+
+
+@pytest.mark.parametrize("n_rays", [1, 31, 32, 33, 300, 1000])
+def test_march_kernel_matches_plain(dev, n_rays):
+    """K1 at ragged live-ray counts around its 32-ray tiles, against its plain
+    version on the same compacted rays (5e-3, the reference's march
+    tolerance); early exit on and off bit for bit; misses exact zeros."""
+    packed, origins, d, (lo, hi), st = _march_case(dev, n_rays, seed=n_rays)
+    t0, t1 = mk.march_ranges(origins, d, (lo, hi), st)
+    live, count = mk.compact_live(t0, t1)
+    box = torch.cat([packed.field_box, torch.tensor(lo + hi, device=dev)])
+    args = (origins, d, t0, t1, live, count, box, packed, 20, st.min_transmittance)
     before = mk.march.launches
     got = mk.march(*args, True)
     assert mk.march.launches == before + 1
-    ref = mk.march_plain(*args, True)
+    ref = mk.march_plain_live(*args, True)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=5e-3, rtol=0)
     for a, b in zip(got, mk.march(*args, False)):
         assert torch.equal(a, b)
-    # And through the caller-facing function, which launches the hits only.
-    out = mk.march_rays_fused(packed, cfg, origins, d, (lo, hi), st)
-    torch.testing.assert_close(out["alpha"][:, 200:], torch.zeros(2, 100, device=dev))
+    hit = t1 > t0
+    assert int(count[0]) == int(hit.sum()) and not got[1][~hit].any()
+    out = mk.march_rays_fused(packed, origins, d, (lo, hi), st)
+    assert torch.equal(out["alpha"].reshape(-1), got[1])
+
+
+def test_march_no_live_ray_launches_and_gives_zeros(dev):
+    """A clip group whose rays all miss: one launch, exact zeros, no host
+    branch (count 0 is read on the device)."""
+    packed, origins, d, aabb, st = _march_case(dev, 64, miss=1.0)
+    before = mk.march.launches
+    out = mk.march_rays_fused(packed, origins, d, aabb, st)
+    assert mk.march.launches == before + 1
+    for k in ("rgb", "alpha", "depth"):
+        assert not out[k].any()
+
+
+@pytest.mark.parametrize("min_t", [1e-4, 0.5])
+def test_march_early_exit_bitexact(dev, min_t):
+    """The exact early exit: a tile stops once all its rays are below
+    min_transmittance; D2R_MARCH_EARLY=0 gives the same bits."""
+    packed, origins, d, aabb, st = _march_case(dev, 500, seed=3, miss=0.1)
+    st = st._replace(min_transmittance=min_t)
+    on = mk.march_rays_fused(packed, origins, d, aabb, st, early_exit=True)
+    off = mk.march_rays_fused(packed, origins, d, aabb, st, early_exit=False)
+    for k in ("rgb", "alpha", "depth"):
+        assert torch.equal(on[k], off[k])
+
+
+def test_crop_render_waits_on_the_host_nowhere(dev):
+    """render_pose_cropped on a clip group, with its box and intrinsics on
+    the device and the field packed: nothing waits for the device
+    (torch.cuda.set_sync_debug_mode("error") raises on a synchronising call)."""
+    from dream2real_tpu_torch.nerf import combined
+    from dream2real_tpu_torch.ops import cameras
+
+    cfg = NGPConfig(aabb_min=(0.0, -0.6, -0.5), aabb_max=(1.1, 0.6, 0.9))
+    field = init_ngp_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    packed = mk.pack_params(field)
+    st = RenderSettings(n_coarse=20, n_fine=0, near=0.05, far=2.0)
+    lo, hi = (0.3, -0.2, 0.0), (0.7, 0.2, 0.3)
+    res, crop = 112, 48
+    K = torch.tensor([[0.9 * res, 0, res / 2], [0, 0.9 * res, res / 2], [0, 0, 1.0]], device=dev)
+    dirs_cam = cameras.pixel_dirs(res, res, K.cpu().numpy(), device=dev)
+    T_WO = torch.eye(4, device=dev)
+    T_WO[:3, 3] = torch.tensor([0.5, 0.0, 0.15], device=dev)
+    T_WC = torch.tensor([[1, 0, 0, 0.5], [0, -1, 0, 0.0], [0, 0, -1, 0.7], [0, 0, 0, 1.0]],
+                        device=dev)
+    poses = T_WO[None].repeat(8, 1, 1)
+    poses[:, 0, 3] += torch.linspace(-0.05, 0.05, 8, device=dev)
+    bg = combined.BackgroundView(rgb=torch.zeros(res, res, 3, device=dev),
+                                 alpha=torch.ones(res, res, device=dev),
+                                 depth=torch.full((res, res), 100.0, device=dev))
+    bg_u8 = combined.background_only_image(bg)
+    aabb = (torch.tensor(lo, device=dev), torch.tensor(hi, device=dev))
+    args = (field, st, dirs_cam, K, aabb, crop, T_WO, T_WC, bg, bg_u8, poses)
+    want = combined.render_pose_cropped(*args, packed=packed)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = combined.render_pose_cropped(*args, packed=packed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want) and got.shape == (8, res, res, 3)
 
 
 @pytest.mark.parametrize("maxsub", ["0", "1"])
@@ -110,6 +234,12 @@ def test_wrappers_reject_bad_inputs(dev):
         att.proj_residual(x, w, b3, x)  # the residual is not (B, T, N)
     with pytest.raises(ValueError):
         att.proj_residual(x, w.float(), b3, torch.zeros(2, 10, 384, dtype=bf, device=dev))
+    with pytest.raises(ValueError):
+        att.linear_bias(x, w[:, :320].contiguous(), b3[:320])  # N % 128
+    with pytest.raises(ValueError):
+        att.linear_bias_gelu(x, w, b3.to(bf))  # the bias in bf16
+    with pytest.raises(ValueError):
+        att.linear_bias_then_resid(x, w, b3, x)  # the residual is not (B, T, N)
 
 
 def test_split_and_fused_attention_paths_agree(dev, monkeypatch):
@@ -455,6 +585,97 @@ def test_gemm_ragged_rows(dev, M):
         over = excess(att.proj_residual(x, wo, bo, resid),
                       att.proj_residual_plain(x, wo, bo, resid))
         assert float(over.max()) <= atol
+
+
+def after_excess(got: torch.Tensor, h: torch.Tensor, after, slack: torch.Tensor) -> torch.Tensor:
+    """How far an epilogue's output `got` lies beyond one bf16 step (and
+    `slack`) of after(c), c the plain layer output h (bf16) or one of its
+    bf16 neighbours, whichever is nearest; <= 0 where held. `after` is what
+    the epilogue does past the layer's rounding (QuickGELU, the residual
+    add), which can turn one step of h into several of its own."""
+    bits = h.view(torch.int16)
+    best = None
+    for c in (h, (bits + 1).view(torch.bfloat16),
+              torch.where(h == 0, h, (bits - 1).view(torch.bfloat16))):
+        g = after(c).float()
+        e = (got.float() - g).abs() - 2**-7 * g.abs() - slack
+        best = e if best is None else torch.minimum(best, e)
+    return best
+
+
+# The towers' widths: (K, N) of qkv, proj, fc1 and fc2 in the vision (W 1024)
+# and text (W 768) towers.
+TOWER_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024), (768, 2304),
+                (768, 768), (768, 3072), (3072, 768)]
+
+
+@pytest.mark.parametrize("M", [1, 77, 128, 129])
+@pytest.mark.parametrize("K,N", TOWER_SHAPES)
+def test_epilogue_gemms_match_plain(dev, K, N, M):
+    """The tower's three GEMM epilogues at both towers' widths and ragged
+    rows, element by element within one bf16 step of the plain version
+    (2^-7 |plain|) plus 2^-20 of the element's sum of |products|: the
+    tensor cores and cuBLAS's f32 GEMM each round the f32 sum in their own
+    order, about 2^-23 of that sum apart (measured on the H100), which moves
+    results near zero by more than their own bf16 step. Where the layer's
+    bf16 output goes on through QuickGELU (fc1) or a residual add (fc2,
+    proj), the result is held as that applied to the plain layer output or
+    to one of its two bf16 neighbours (where the two sums round it the other
+    way), within one step: the sigmoid and a nearly cancelling residual turn
+    one step of the layer into several of the result."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + M)
+    x = (torch.randn(3, M, K, generator=gen, device=dev)).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=gen, device=dev) * K**-0.5).to(torch.bfloat16)
+    b = torch.randn(N, generator=gen, device=dev) * 0.1
+    r = (torch.randn(3, M, N, generator=gen, device=dev)).to(torch.bfloat16)
+    layer = att.linear_bias_plain(x, w, b)
+    slack = 2.0**-20 * (x.float().abs() @ w.float().abs())
+    for name, args, after in (
+        ("linear_bias", (x, w, b), lambda c: c),
+        ("linear_bias_gelu", (x, w, b),
+         lambda c: c * torch.sigmoid(1.702 * c.float()).to(torch.bfloat16)),
+        ("linear_bias_then_resid", (x, w, b, r), lambda c: r + c),
+    ):
+        fn = getattr(att, name)
+        n = fn.launches
+        got = fn(*args)
+        assert fn.launches == n + 1 and got.shape == (3, M, N)
+        assert torch.equal(getattr(att, name + "_plain")(*args), after(layer))
+        assert float(after_excess(got, layer, after, slack).max()) <= 0.0, name
+
+
+@pytest.mark.parametrize("causal,fused", [(False, "0"), (False, "1"), (True, "0")])
+def test_tower_block_rounds_once_as_the_reference(dev, causal, fused, monkeypatch):
+    """The double-rounding witness (witness_block) through a tower block on
+    the card: bit for bit what the plain path gives on the CPU (where
+    tests/test_torch_gemm.py holds it against the JAX package), one rounding
+    at each biased layer. A layer that rounds its product to bf16 before
+    adding the bias gives 1.25 and 1 where these give 1.2578125 and
+    1 + 2^-7."""
+    from dream2real_tpu_torch.clip import model as cm
+
+    monkeypatch.setenv("D2R_ATTN_FUSED_LN", fused)
+    p, x = witness_block(), witness_input()
+    with torch.inference_mode():
+        want = cm._block(torch.as_tensor(x).to(torch.bfloat16), port_block(p, "cpu"), 2,
+                         causal=causal)
+        got = cm._block(torch.as_tensor(x, device=dev).to(torch.bfloat16), port_block(p, dev),
+                        2, causal=causal).cpu()
+    assert float(want[0, 0, 3]) == 1.2578125 and float(want[0, 0, 5]) == 1 + 2**-7
+    assert torch.equal(got, want), (got[0, 0, :6], want[0, 0, :6])
+
+
+@pytest.mark.parametrize("T", [1, 16, 77, 128, 129, 300])
+def test_causal_attention_lengths(dev, T):
+    """K4 (one launch; one tile of keys in registers for T <= 128, three
+    passes past it) against its plain version at atol 0.02 / rtol 0.05."""
+    gen = torch.Generator(device=dev).manual_seed(T)
+    q, k, v = (torch.randn(3, 12, T, 64, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    n = att.mha.launches
+    got = att.mha(q, k, v, causal=True).float()
+    assert att.mha.launches == n + 1
+    torch.testing.assert_close(got, att.mha_causal_plain(q, k, v).float(), atol=0.02, rtol=0.05)
 
 
 def test_fused_score_on_the_card_saves_what_it_scores(dev, tmp_path, monkeypatch):
