@@ -2,9 +2,9 @@
 score with it, run the grid scorer on it, and run the attention bench.
 
     python3 chip_smoke.py            # needs one card
-    python3 chip_smoke.py --profile  # also print torch.profiler breakdowns of
-                                     # five training steps and of one
-                                     # 32-pose clip group
+    python3 chip_smoke.py --profile  # also print torch.profiler tables of
+                                     # phase T's five training steps and of
+                                     # one 32-pose clip group
 
 Phases (any failure raises; the exit code is then nonzero):
   0 device      require CUDA; print the card's name and power limit
@@ -32,8 +32,10 @@ Phases (any failure raises; the exit code is then nonzero):
                 table of full K7 calls, the products held against f32 act^T
                 delta over the scratch of a one-chunk K7 call; K7's gradients
                 bit-identical from call to call and with and without ray
-                gradients); the ptxas C75xx
-                (wgmma serialisation) lines of each source counted; the
+                gradients; K6's alpha on K8's inputs the in-order sum of
+                K8's weights, bit for bit); each kernel's ptxas registers
+                and spills, and the C75xx (wgmma serialisation) lines of
+                each source counted; the
                 attention kernel and the GEMM also over ragged
                 shapes (T 1 to 584 in both layouts, every mode; M 1 to 129,
                 every epilogue),
@@ -46,10 +48,11 @@ Phases (any failure raises; the exit code is then nonzero):
                 depth supervision, 3000 steps; steps/s, final loss, and the
                 selftest's bar (PSNR > 22 dB, median depth error < 5 cm);
                 1 K5, 1 K6 and 1 K7 launch a step (K7's row pass and
-                weight-gradient products once a chunk of rays), no K8; K7
-                against its plain version on the trained field; two fresh
-                20-step runs from one seed bit-identical; a 20-step run with
-                D2R_FUSED_SAMPLER=0, which launches K8
+                weight-gradient products once a chunk of rays), no K8; K5,
+                K7 and K8 against their plain versions on the trained field;
+                two fresh 20-step runs from one seed bit-identical; a 20-step
+                run with D2R_FUSED_SAMPLER=0, which launches K8; five steps
+                under the profiler: the device time a step, by kernel
   3 main path   bench.py's workload on the trained field: synth scene, 336^2
                 view, plain-torch background render, random-weight
                 ViT-L/14-336, hash-tokenized captions through encode_text
@@ -87,6 +90,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -160,6 +164,33 @@ def time_ms(fn, runs: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def ptxas_report(log_text: str) -> dict:
+    """ptxas -v's lines of one source's build, kernel by kernel: {name:
+    (registers, spill store bytes, spill load bytes)}, the names demangled
+    (c++filt) and cut to the template."""
+    fns, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            fns.setdefault(cur, [0, 0, 0])
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            fns[cur][1:] = int(m[1]), int(m[2])
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            fns[cur][0] = int(m[1])
+    names = list(fns)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        plain = names
+    out = {}
+    for raw, name in zip(names, plain if len(plain) == len(names) else names):
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        out[name.split("(")[0]] = tuple(fns[raw])
+    return out
+
+
 def kernel_ms(fn, parts: dict, calls: int) -> dict:
     """Device ms a call of fn spent in each part's kernels (names containing
     any of the part's words), from the profiler's kernel table of `calls`
@@ -200,7 +231,8 @@ def k1_gaps(got, ref):
 
 
 # Calls queued per timing of the attention and GEMM rows (K2, K3, K9, X1-X4),
-# and of the K6 / K7 rows.
+# and of the K5-K8 rows (0.5-9 ms a call: queued, the reading is the
+# device's time, not the wrapper's and the host's launch path).
 QUEUED = 10
 TRAIN_QUEUED = 3
 
@@ -245,9 +277,13 @@ def main() -> int:
     phase("1 build")
     secs = build.build_all()
     log(f"built {', '.join(build.SOURCES)} in {secs:.2f} s")
+    ptxas = {src: ptxas_report(build.build_log(src)) for src in build.SOURCES}
     for src in build.SOURCES:
+        for kname, (regs, st_b, ld_b) in ptxas[src].items():
+            log(f"  {src}: {kname}: {regs} registers, {st_b} bytes spill stores, {ld_b} bytes "
+                f"spill loads")
         for line in build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line or "C75" in line:
+            if "C75" in line:
                 log(f"  {src}: {line.strip()}")
     # ptxas serialises wgmma where it cannot prove them safe to overlap and
     # says so only as C75xx lines (see .claude/skills/verify/SKILL.md).
@@ -796,13 +832,15 @@ def main() -> int:
         err5 = float((ts_t - tk.density_sample_plain(*k5_args)).abs().max())
         step5 = float((ts_t[:, 1:] - ts_t[:, :-1]).min())
         inside = bool((ts_t >= ts_c[:, :1] - 1e-5).all() and (ts_t <= ts_c[:, -1:] + 1e-5).all())
-        log(f"  K5: draws sorted (least step {step5:.3e}), inside the coarse range: {inside}")
+        log(f"  K5: draws sorted (least step {step5:.3e}), inside the coarse range: {inside}; "
+            f"one call between the events (the wrapper's image and the host's launch path "
+            f"included) {time_ms(lambda: tk.density_sample(*k5_args), 10):.4f} ms")
         if err5 > 1e-2 or step5 < -1e-6 or not inside:
             raise AssertionError(f"K5: kernel vs plain max abs {err5} > 1e-2, or unsorted draws")
         record(
             "density_sample (K5)", "dream2real_tpu_torch/csrc/train.cu",
             "dream2real_tpu/nerf/train_kernel.py:872", err5,
-            time_ms(lambda: tk.density_sample(*k5_args), 10),
+            time_ms(lambda: tk.density_sample(*k5_args), 10, TRAIN_QUEUED),
             time_ms(lambda: tk.density_sample_plain(*k5_args), 3),
             2.0 * DENSITY_MACS * R * nc, R * (6 + nc + n_draw + 1 + n_draw) * 4 + tw.numel() * 2,
             None,
@@ -814,7 +852,6 @@ def main() -> int:
         if err6 > 5e-3:
             raise AssertionError(f"K6: kernel vs plain max abs {err6} > 5e-3")
         fwd_macs = TRUNK_MACS + COLOUR_MACS
-        # K6 and K7 run 1-3 ms: three calls queued between the events.
         record(
             "train_fwd (K6)", "dream2real_tpu_torch/csrc/train.cu",
             "dream2real_tpu/nerf/train_kernel.py:508", err6,
@@ -923,11 +960,25 @@ def main() -> int:
         record(
             "density_weights (K8)", "dream2real_tpu_torch/csrc/train.cu",
             "dream2real_tpu/nerf/train_kernel.py:450", err8,
-            time_ms(lambda: tk.density_weights(*k8_args), 10),
+            time_ms(lambda: tk.density_weights(*k8_args), 10, TRAIN_QUEUED),
             time_ms(lambda: tk.density_weights_plain(*k8_args), 3),
             2.0 * DENSITY_MACS * R * nc, R * (6 + 2 * nc) * 4 + tw.numel() * 2, None,
         )
-        del C, A, D, fwd_plain, g_slim, g_full, g_again, g_plain, g_one
+        # K8 runs K6's trunk and scan on K6's tiles: on the same inputs K6's
+        # alpha is the in-order f32 sum of K8's weights, bit for bit.
+        alpha6 = tk.train_fwd(*k8_args)[1]
+        alpha8 = torch.zeros_like(alpha6)
+        for s_ in range(nc):
+            alpha8 = alpha8 + w8[:, s_]
+        if not torch.equal(alpha6, alpha8):
+            raise AssertionError(f"K6's alpha is not the in-order sum of K8's weights: max gap "
+                                 f"{float((alpha6 - alpha8).abs().max())}")
+        log("  K6's alpha on K8's inputs equals the in-order f32 sum of K8's weights, bit for bit")
+        for kname, (regs, st_b, ld_b) in ptxas["train"].items():
+            if kname.startswith("density_rows"):
+                log(f"  ptxas {kname} ({'K5' if 'true' in kname else 'K8'}): {regs} registers, "
+                    f"{st_b} bytes spill stores, {ld_b} bytes spill loads")
+        del C, A, D, fwd_plain, g_slim, g_full, g_again, g_plain, g_one, alpha6, alpha8
 
     # ------------------------------------------------------ A attention bench
     phase("A attention bench (experiments/bench_attention.main, full shape, 3 reps)")
@@ -1032,6 +1083,24 @@ def main() -> int:
         f"version, least cosine {cos_tr:.6f}")
     if err_tr > 8e-2 or cos_tr <= 0.995:
         raise AssertionError(f"K7 on the trained field: {err_tr} x scale, cosine {cos_tr}")
+    # K5 and K8 against their plain versions on the same batch of the
+    # trained field, at phase 2's bounds.
+    with torch.inference_mode():
+        k5_tr = (o_t, d_t, ts_c, draws, tbox, tw_t, tb_t, n_draw, settings.min_transmittance,
+                 tk.sampler_mix_default())
+        err5_tr = float((ts_tr - tk.density_sample_plain(*k5_tr)).abs().max())
+        step5_tr = float((ts_tr[:, 1:] - ts_tr[:, :-1]).min())
+        inside_tr = bool((ts_tr >= ts_c[:, :1] - 1e-5).all()
+                         and (ts_tr <= ts_c[:, -1:] + 1e-5).all())
+        k8_tr = (o_t, d_t, ts_c, tbox, tw_t, tb_t, settings.min_transmittance)
+        w8_tr = tk.density_weights(*k8_tr)
+        err8_tr = float((w8_tr - tk.density_weights_plain(*k8_tr)).abs().max())
+    log(f"  K5 on the trained field: max |kernel - plain| {err5_tr:.3e} (1e-2), draws sorted "
+        f"(least step {step5_tr:.3e}), inside the coarse range: {inside_tr}; K8: {err8_tr:.3e} "
+        f"(5e-3); mean coarse alpha {float(w8_tr.sum(dim=1).mean()):.4f}")
+    if err5_tr > 1e-2 or step5_tr < -1e-6 or not inside_tr or err8_tr > 5e-3:
+        raise AssertionError(f"K5 / K8 on the trained field: {err5_tr}, {step5_tr}, {inside_tr}, "
+                             f"{err8_tr}")
     # Training is deterministic: two fresh 20-step runs from one seed end
     # with the same parameters, bit for bit.
     tc20 = dataclasses.replace(st["tc"], poll_steps=20)
@@ -1057,6 +1126,42 @@ def main() -> int:
     log(f"  D2R_FUSED_SAMPLER=0: 20 steps, loss {loss8:.5f}, launches {k8_launches}")
     if k8_launches["density_weights (K8)"] != 20 or k8_launches["density_sample (K5)"] != 0:
         raise AssertionError("the D2R_FUSED_SAMPLER=0 path did not run through K8")
+    # Five training steps of the selftest configuration on a fresh state,
+    # after one warm step, under the profiler: the device time a step, by
+    # kernel.
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    tc5 = dataclasses.replace(st["tc"], poll_steps=5)
+    state5 = init_train_state(st["cfg"], tc5, n_images=36, device=dev)
+    make_train_chunk(st["cfg"], dataclasses.replace(tc5, poll_steps=1), settings,
+                     **st["data"])(state5)
+    chunk5 = make_train_chunk(st["cfg"], tc5, settings, **st["data"])
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof5:
+        chunk5(state5)
+        torch.cuda.synchronize()
+    wall5 = (time.perf_counter() - t5) * 1e3 / 5
+    by_kernel = {}
+    for ev in prof5.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "device_time_total", None)
+            by_kernel[ev.key] = (us if us is not None else ev.cuda_time_total) / 1e3 / 5
+    step_parts = {"K5 density_rows<true>": ("density_rows<true>",),
+                  "K6 train_rows<false>": ("train_rows<false>",),
+                  "K7 train_rows<true>": ("train_rows<true>",),
+                  "K7 dw_gemm + reduce_grads": ("dw_gemm", "reduce_grads")}
+    split = {part: sum(ms for key, ms in by_kernel.items() if any(w_ in key for w_ in words))
+             for part, words in step_parts.items()}
+    dev_step = sum(by_kernel.values())
+    split["the rest"] = dev_step - sum(split.values())
+    log(f"  5 profiled training steps: {dev_step:.3f} ms of device time a step ("
+        + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in split.items())
+        + f"); unprofiled a step takes {1e3 / st['steps_per_s']:.2f} ms (the selftest's steps/s), "
+        f"so the device is idle {max(0.0, 1.0 - dev_step * st['steps_per_s'] / 1e3) * 100:.1f}% of "
+        f"it; {wall5:.2f} ms of wall a step under the profiler ({smi})")
+    if not all(split[k_] > 0 for k_ in step_parts):
+        raise AssertionError(f"the profiler shows no device time for a training kernel: {split}")
     for k in kernels:
         if k["name"] in train_launches:
             k["launches"] = (k8_launches if k["name"] == "density_weights (K8)"
@@ -1231,28 +1336,12 @@ def main() -> int:
         f"{bound_ms(2.0 * macs * needed_t, 0)[0]:.4f} ms)")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             score_fn(*args3, poses[:clip_batch])
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
-        # Five training steps of the selftest configuration on a fresh state
-        # (after one warm step): the breakdown of one step's device time.
-        tc5 = dataclasses.replace(st["tc"], poll_steps=5)
-        state5 = init_train_state(st["cfg"], tc5, n_images=36, device=dev)
-        chunk5 = make_train_chunk(st["cfg"], dataclasses.replace(tc5, poll_steps=1), settings,
-                                  **st["data"])
-        chunk5(state5)
-        chunk5 = make_train_chunk(st["cfg"], tc5, settings, **st["data"])
-        torch.cuda.synchronize()
-        t5 = time.perf_counter()
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            chunk5(state5)
-            torch.cuda.synchronize()
-        log(f"  5 training steps in {(time.perf_counter() - t5) * 1e3:.1f} ms of wall under the "
-            f"profiler")
-        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+        # Phase T's five profiled training steps, in full.
+        log(prof5.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
     # --------------------------------------------------- 4 main vs plain
     phase("4 main path through the kernels vs through their plain versions")

@@ -51,32 +51,31 @@
 // them. Rays past the end and rows past a ray's samples have zero
 // cotangents and zero deltas, so they add exactly zero to every gradient.
 //
-// K5 and K8 (WMMA): a block owns 64 rays and walks the samples in order,
-// with every activation of the current sample resident in shared memory,
-// one bf16 row per ray: [h0 256 | h1 256 | enc 64 | h2 256 | h3 256 | h4 16]
-// so that [enc | h2] is layer 3's input. Warp w owns 16 rays (w & 3) and
-// every other 16-column tile (w >> 2); the weights stream from L2 through
-// one shared K-tile that all warps read.
+// K5 and K8 (density_rows; Hopper): the same rows and tiles as K6, on the
+// same engine, with the density trunk alone: the first 32 jobs of K6's
+// weight image (w0 .. w4), h4's sigma column, and one thread a ray scanning
+// its rows for the coarse weights (K6's scan without colour, so K6's alpha
+// is the in-order sum of K8's weights bit for bit). One block an SM strides
+// over the tiles, so the ring runs on from tile to tile. K8 writes the
+// weights; K5 keeps them in shared memory, where a thread a ray builds the
+// ray's CDF and another its draws' Exp(1) prefix sums (each a sequential f32
+// sum), and every thread of the block then takes draws, each finding its
+// bin by a binary search over the ray's CDF.
 // Weight layout: dream2real_tpu_torch/nerf/train_kernel.py (W_LAYOUT,
 // B_LAYOUT, G_LAYOUT, WGMMA_JOBS, SCRATCH_CHUNKS).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 #include "rows.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
 namespace {
 
 constexpr float kPi = 3.14159265358979323846f;
 
-// Packed bf16 weights (W_LAYOUT), each (K x N) row-major, and f32 biases.
-constexpr int kW0 = 0, kW1 = 16384, kW2 = 81920, kW3 = 147456, kW4 = 229376;
+// Packed f32 biases (B_LAYOUT).
 constexpr int kB0 = 0, kB1 = 256, kB2 = 512, kB3 = 768, kB4 = 1024;
 // f32 gradients (G_LAYOUT): the forward matrices, then the biases.
 constexpr int kGW0 = 0, kGW1 = 16384, kGW2 = 81920, kGW3 = 147456, kGW4 = 229376,
@@ -90,266 +89,12 @@ __device__ __forceinline__ float pick3(const float* v, int c) {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// ============================================================ K5, K8 (WMMA)
-
-constexpr int kRays = 64;   // rays per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = 1272;   // activation row (bf16): 1104 columns + 168 of padding
-constexpr int kKT = 32;     // weight rows staged per tile
-constexpr int kWLd = 328;   // widest layer (320) + 8 pad
-constexpr int kFLd = 88;    // per-ray f32 row
-
-// Activation columns (multiples of 16: WMMA tiles start there).
-constexpr int kH0 = 0, kH1 = 256, kEnc = 512, kH2 = 576, kH3 = 832, kH4 = 1088;
-constexpr int kFEnc = 20;  // per-ray f32 columns: K5's coarse weights
-
-constexpr size_t kActBytes = size_t(kRays) * kLd * 2;
-constexpr size_t kWBytes = size_t(kKT) * kWLd * 2;
-constexpr size_t kScratchBytes = size_t(kWarps) * 256 * 4;
-constexpr size_t kFBytes = size_t(kRays) * kFLd * 4;
-constexpr size_t kSmemBytes = kActBytes + kWBytes + kScratchBytes + kFBytes;
-
-struct Smem {
-  bf16* act;
-  bf16* w;
-  float* scratch;
-  float* f;
-};
-
-__device__ __forceinline__ Smem smem_layout(unsigned char* raw) {
-  Smem sm;
-  sm.act = reinterpret_cast<bf16*>(raw);
-  sm.w = reinterpret_cast<bf16*>(raw + kActBytes);
-  sm.scratch = reinterpret_cast<float*>(raw + kActBytes + kWBytes);
-  sm.f = reinterpret_cast<float*>(raw + kActBytes + kWBytes + kScratchBytes);
-  return sm;
-}
-
-// out(64 x N) = act[:, a_col : a_col + K] @ W (K x N, row-major in device
-// memory) + bias, relu'd unless kRelu is false, rounded to bf16 into
-// act[:, out_col:]. Starts with a block barrier: every earlier write to the
-// activations is visible.
-template <int N, int K, bool kRelu>
-__device__ __forceinline__ void gemm_rows(const Smem& sm, int a_col, const bf16* __restrict__ W,
-                                          const float* __restrict__ bias, int out_col) {
-  constexpr int NT = N / 16;
-  constexpr int NJ = (NT + 1) / 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, cg = warp >> 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  const bf16* a_base = sm.act + (rg * 16) * kLd + a_col;
-  constexpr int kVec = N / 8;
-  for (int kt = 0; kt < K; kt += kKT) {
-    const int rows = (K - kt) < kKT ? (K - kt) : kKT;
-    __syncthreads();  // the previous tile (and earlier epilogues) are done
-    for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
-      const int r = i / kVec, c = (i - r * kVec) * 8;
-      *reinterpret_cast<uint4*>(sm.w + r * kWLd + c) =
-          *reinterpret_cast<const uint4*>(W + size_t(kt + r) * N + c);
-    }
-    __syncthreads();
-    for (int kk = 0; kk < rows; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_base + kt + kk, kLd);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = cg + 2 * j;
-        if (n < NT) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, sm.w + kk * kWLd + n * 16, kWLd);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-    }
-  }
-  float* scr = sm.scratch + warp * 256;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int n = cg + 2 * j;
-    if (n >= NT) continue;
-    __syncwarp();
-    wmma::store_matrix_sync(scr, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int row = rg * 16 + (e >> 4);
-      const int c = n * 16 + (e & 15);
-      const float v = scr[e] + bias[c];
-      sm.act[row * kLd + out_col + c] = __float2bfloat16_rn(kRelu ? fmaxf(v, 0.0f) : v);
-    }
-  }
-}
-
-// The density trunk at the current sample: enc -> h0..h4.
-__device__ __forceinline__ void density_forward(const Smem& sm, const bf16* __restrict__ W,
-                                                const float* __restrict__ B) {
-  gemm_rows<256, 64, true>(sm, kEnc, W + kW0, B + kB0, kH0);
-  gemm_rows<256, 256, true>(sm, kH0, W + kW1, B + kB1, kH1);
-  gemm_rows<256, 256, true>(sm, kH1, W + kW2, B + kB2, kH2);
-  gemm_rows<256, 320, true>(sm, kEnc, W + kW3, B + kB3, kH3);
-  gemm_rows<16, 256, false>(sm, kH3, W + kW4, B + kB4, kH4);
-  __syncthreads();
-}
-
-// One ray of the block: four threads share it (q = 0..3); q == 0 owns its
-// composite state.
-struct Ray {
-  int r, q;
-  long g;
-  bool in_range;
-  float o[3], d[3], lo[3], hi[3], a3[3], b3[3], dn;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ origins,
-                                        const float* __restrict__ dirs, int n_rays,
-                                        const float* __restrict__ box) {
-  Ray ray;
-  ray.r = threadIdx.x & (kRays - 1);
-  ray.q = threadIdx.x / kRays;
-  ray.g = long(blockIdx.x) * kRays + ray.r;
-  ray.in_range = ray.g < n_rays;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    ray.o[c] = ray.in_range ? origins[ray.g * 3 + c] : 0.0f;
-    ray.d[c] = ray.in_range ? dirs[ray.g * 3 + c] : (c == 2 ? 1.0f : 0.0f);
-    ray.lo[c] = box[c];
-    ray.hi[c] = box[3 + c];
-    const float scale = 2.0f / (ray.hi[c] - ray.lo[c]);
-    ray.a3[c] = fmaf(ray.o[c], scale, -2.0f * ray.lo[c] / (ray.hi[c] - ray.lo[c]) - 1.0f);
-    ray.b3[c] = __fmul_rn(ray.d[c], scale);
-  }
-  ray.dn = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(ray.d[0], ray.d[0]), __fmul_rn(ray.d[1], ray.d[1])),
-                           __fmul_rn(ray.d[2], ray.d[2])));
-  return ray;
-}
-
+// Encoding angle idx of a row at position t: A + B t with A = a3 f_j, B = b3
+// f_j (freq-major, like posenc).
 __device__ __forceinline__ float angle(const float* a3, const float* b3, int idx, float t) {
   const int j = idx / 3, c = idx - 3 * j;
   const float freq = ldexpf(kPi, j);
   return fmaf(__fmul_rn(pick3(b3, c), freq), t, __fmul_rn(pick3(a3, c), freq));
-}
-
-// Encoding [p2 | sin(ang) | cos(ang) | 0] of sample position t, ang = A + B t
-// with A = a3 f_j, B = b3 f_j (freq-major, like posenc).
-__device__ __forceinline__ void encode(const Smem& sm, const Ray& ray, float t) {
-  bf16* arow = sm.act + ray.r * kLd + kEnc;
-  for (int idx = ray.q; idx < 30; idx += 4) {
-    float sv, cv;
-    sincosf(angle(ray.a3, ray.b3, idx, t), &sv, &cv);
-    arow[3 + idx] = __float2bfloat16_rn(sv);
-    arow[33 + idx] = __float2bfloat16_rn(cv);
-  }
-  if (ray.q == 0) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) arow[c] = __float2bfloat16_rn(fmaf(ray.b3[c], t, ray.a3[c]));
-  } else if (ray.q == 1) {
-    arow[63] = __float2bfloat16_rn(0.0f);
-  }
-}
-
-// sigma at sample position t: trunc_exp of the bf16 head, zero outside the box.
-__device__ __forceinline__ float sample_sigma(const Smem& sm, const Ray& ray, float t) {
-  float sigma = expf(fminf(fmaxf(__bfloat162float(sm.act[ray.r * kLd + kH4]), -15.0f), 15.0f));
-  bool inside = true;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float pc = fmaf(ray.d[c], t, ray.o[c]);
-    inside = inside && pc >= ray.lo[c] && pc <= ray.hi[c];
-  }
-  return inside ? sigma : 0.0f;
-}
-
-__device__ __forceinline__ float sample_t(const float* __restrict__ ts, const Ray& ray, int S,
-                                          int s) {
-  return ray.in_range ? ts[ray.g * S + s] : 0.0f;
-}
-
-__device__ __forceinline__ float sample_delta(const float* __restrict__ ts, const Ray& ray, int S,
-                                              int s, float t) {
-  return s == S - 1 ? 1e2f : sample_t(ts, ray, S, s + 1) - t;
-}
-
-// Coarse density pass shared by K5 and K8: the composite weight of sample s
-// goes to out[s] (stride `stride`) of the ray's owner thread.
-__device__ __forceinline__ void coarse_pass(const Smem& sm, const Ray& ray,
-                                            const float* __restrict__ ts, int S,
-                                            const bf16* __restrict__ W,
-                                            const float* __restrict__ B, float min_trans,
-                                            float* out, int stride) {
-  float trans = 1.0f;
-  for (int s = 0; s < S; ++s) {
-    const float t = sample_t(ts, ray, S, s);
-    encode(sm, ray, t);
-    density_forward(sm, W, B);
-    if (ray.q == 0) {
-      const float sigma = sample_sigma(sm, ray, t);
-      const float a = 1.0f - expf(-sigma * sample_delta(ts, ray, S, s, t) * ray.dn);
-      if (out != nullptr) out[s * stride] = (trans < min_trans) ? 0.0f : a * trans;
-      trans = trans * (1.0f - a + 1e-10f);
-    }
-  }
-}
-
-// K8: coarse composite weights (R, S).
-__global__ void __launch_bounds__(kThreads, 1)
-    density_weights_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
-                           const float* __restrict__ ts, int n_rays, int S,
-                           const float* __restrict__ box, const bf16* __restrict__ W,
-                           const float* __restrict__ B, float min_trans,
-                           float* __restrict__ out) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];  // one alignment for every kernel here
-  const Smem sm = smem_layout(smem_raw);
-  const Ray ray = load_ray(origins, dirs, n_rays, box);
-  coarse_pass(sm, ray, ts, S, W, B, min_trans, ray.in_range ? out + ray.g * S : nullptr, 1);
-}
-
-// K5: coarse pass over nc samples, then n_draw sorted inverse-CDF draws from
-// the defensive mixture w + mix_ratio * mean(w) + 1e-8 (mix_ratio =
-// mix / (1 - mix)): the draws are normalised prefix sums of Exp(1) numbers,
-// ascending by construction, and the bin pointer only moves forward. The CDF
-// is a sequential f32 prefix sum, strictly increasing, so the forward scan
-// picks the bin the reference's one-hot picks.
-__global__ void __launch_bounds__(kThreads, 1)
-    density_sample_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
-                          const float* __restrict__ ts_c, const float* __restrict__ exps,
-                          int n_rays, int nc, int n_draw, const float* __restrict__ box,
-                          const bf16* __restrict__ W, const float* __restrict__ B,
-                          float min_trans, float mix_ratio, float* __restrict__ out) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];  // one alignment for every kernel here
-  const Smem sm = smem_layout(smem_raw);
-  const Ray ray = load_ray(origins, dirs, n_rays, box);
-  float* wts = sm.f + ray.r * kFLd + kFEnc;
-  coarse_pass(sm, ray, ts_c, nc, W, B, min_trans, wts, 1);
-  if (ray.q != 0 || !ray.in_range) return;
-  const float* tr = ts_c + ray.g * nc;
-  const float* e = exps + ray.g * (n_draw + 1);
-  float wsum = 0.0f;
-  for (int k = 0; k < nc; ++k) wsum = __fadd_rn(wsum, wts[k]);
-  const float floor_w = __fmul_rn(mix_ratio, wsum / float(nc));
-  float total = 0.0f;
-  for (int k = 0; k < nc; ++k) total = __fadd_rn(total, __fadd_rn(__fadd_rn(wts[k], floor_w), 1e-8f));
-  float s_total = 0.0f;
-  for (int i = 0; i <= n_draw; ++i) s_total = __fadd_rn(s_total, e[i]);
-  int k = 0;
-  float cdf_lo = 0.0f;
-  float cdf_hi = __fadd_rn(__fadd_rn(wts[0], floor_w), 1e-8f) / total;
-  float prefix = 0.0f;
-  for (int i = 0; i < n_draw; ++i) {
-    prefix = __fadd_rn(prefix, e[i]);
-    const float u = prefix / s_total;
-    while (k < nc - 1 && u >= cdf_hi) {
-      ++k;
-      cdf_lo = cdf_hi;
-      cdf_hi = __fadd_rn(cdf_hi, __fadd_rn(__fadd_rn(wts[k], floor_w), 1e-8f) / total);
-    }
-    const float lo = k == 0 ? tr[0] : 0.5f * (tr[k] + tr[k - 1]);
-    const float hi = k == nc - 1 ? tr[nc - 1] : 0.5f * (tr[k + 1] + tr[k]);
-    const float span = cdf_hi - cdf_lo;
-    const float denom = span < 1e-8f ? 1.0f : span;
-    out[ray.g * n_draw + i] = lo + __fmul_rn((u - cdf_lo) / denom, hi - lo);
-  }
 }
 
 // ================================================== K6, K7 (wgmma, bulk ring)
@@ -1162,6 +907,304 @@ __global__ void reduce_grads(const float* __restrict__ part, int parts,
   grads[i] = s;
 }
 
+// ============================================== K5, K8 (density_rows, Hopper)
+
+constexpr int kTrunkJobs = 32;  // WGMMA_JOBS 0-31: w0 .. w4, the density trunk
+static_assert(image_bytes(kTrunkJobs) == 491520, "the trunk's jobs");
+constexpr int kUFloats = 8192;  // K5's window: Exp(1) numbers, then their prefix sums
+// Shared memory of density_rows (bytes): the ring, its barriers, the job
+// table, the ray slots, the rows' sigma, weights and positions, K5's CDF
+// rows, its per-ray floor, total and Exp(1) sum, and its window.
+constexpr int kDsBars = kRingStages * kStageBytes;
+constexpr int kDsJobs = kDsBars + 128;
+constexpr int kDsSlots = kDsJobs + 2 * kTrunkJobs * 4;
+constexpr int kDsRows = kDsSlots + (kTileRows + 1) * int(sizeof(RaySlot));
+constexpr int kDsRay = kDsRows + 4 * kTileRows * 4;
+constexpr int kDsWin = kDsRay + 3 * 64 * 4;
+constexpr int kDensitySmem = kDsWin + kUFloats * 4;
+static_assert(kDensitySmem <= 232448, "density_rows shared memory");
+
+struct DensityArgs {
+  const float *origins, *dirs, *ts, *box, *B, *exps;
+  const unsigned char* img;
+  int n_rays, S, rpt, spt, steps, n_draw;
+  float min_trans, mix_ratio;
+  float* out;
+};
+
+// Ray g into a slot: its origin, direction, encoding constants and |d|, as
+// train_rows computes them; a ray past the end sits at 0 along +z.
+__device__ __forceinline__ void density_slot(RaySlot& s, const DensityArgs& a, long g, bool ok) {
+  s.g = ok ? g : 0;
+  s.valid = ok;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s.o[c] = ok ? a.origins[g * 3 + c] : 0.0f;
+    s.d[c] = ok ? a.dirs[g * 3 + c] : (c == 2 ? 1.0f : 0.0f);
+    const float lo = a.box[c], hi = a.box[3 + c];
+    s.scale[c] = 2.0f / (hi - lo);
+    s.a3[c] = fmaf(s.o[c], s.scale[c], -2.0f * lo / (hi - lo) - 1.0f);
+    s.b3[c] = __fmul_rn(s.d[c], s.scale[c]);
+  }
+  s.dn = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(s.d[0], s.d[0]), __fmul_rn(s.d[1], s.d[1])),
+                         __fmul_rn(s.d[2], s.d[2])));
+}
+
+// K8 (kSample false) and K5 (kSample true) on K6's rows: tile k holds rays
+// k rpt .. (k + 1) rpt - 1, row r of a step is sample step * spt + r % spt
+// of ray r / spt, and block b takes tiles b, b + gridDim.x, ... The trunk,
+// sigma and the scan are K6's, step for step, so K6's alpha is the in-order
+// f32 sum of K8's weights bit for bit.
+template <bool kSample>
+__global__ void __launch_bounds__(kRowThreads, 1) density_rows(const DensityArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  if (base & 1023u) __trap();
+  const Lane l = lane_of();
+  int* job_off = reinterpret_cast<int*>(smem_raw + kDsJobs);
+  int* job_len = job_off + kTrunkJobs;
+  RaySlot* slots = reinterpret_cast<RaySlot*>(smem_raw + kDsSlots);
+  float* sig = reinterpret_cast<float*>(smem_raw + kDsRows);
+  float* wrow = sig + kTileRows;
+  float* trow = sig + 2 * kTileRows;
+  float* cdf = sig + 3 * kTileRows;  // K5: ray r's CDF at r * nc
+  float* rayv = reinterpret_cast<float*>(smem_raw + kDsRay);  // K5: 3 x 64 per-ray values
+  float* win = reinterpret_cast<float*>(smem_raw + kDsWin);
+  const int rpt = a.rpt, spt = a.spt, S = a.S;
+  const int n_tiles = (a.n_rays + rpt - 1) / rpt;
+  if (int(blockIdx.x) >= n_tiles) return;  // block-uniform, before any copy is asked for
+
+  Ring ring;
+  ring.base = base;
+  ring.bars = base + kDsBars;
+  ring.off = job_off;
+  ring.bytes = job_len;
+  ring.img = a.img;
+  ring.per_step = kTrunkJobs;
+  // The block's tiles are known, so every job asked for is taken: nothing
+  // is left in flight at the end.
+  ring.total = ((n_tiles - 1 - int(blockIdx.x)) / int(gridDim.x) + 1) * a.steps * kTrunkJobs;
+  ring.n = ring.rel = 0;
+  if (l.tid == 0) {
+    for (int j = 0, off = 0; j < kTrunkJobs; off += job_bytes(j), ++j) {
+      job_off[j] = off;
+      job_len[j] = job_bytes(j);
+    }
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(ring.bars + 8 * s, 1);                  // full: the expect_tx arrival
+      mbar_init(ring.bars + 8 * (kRingStages + s), 8);  // empty: one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_async_proxy();
+    for (int j = 0; j < kRingStages && j < ring.total; ++j) ring_request(ring, j);
+  }
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long g0 = long(tile) * rpt;
+    for (int r = l.tid; r <= rpt; r += kRowThreads)
+      density_slot(slots[r], a, g0 + r, r < rpt && g0 + r < a.n_rays);
+    __syncthreads();
+    float trans = 1.0f;  // ray tid's transmittance (tid < rpt)
+    for (int step = 0; step < a.steps; ++step) {
+      // This thread's two rows.
+      const RaySlot* rs[2];
+      float t[2];
+      int row[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        row[e] = l.wg * 64 + l.rloc + 8 * e;
+        const int lr = row[e] / spt, s = step * spt + row[e] - lr * spt;
+        rs[e] = &slots[lr < rpt ? lr : rpt];
+        t[e] = rs[e]->valid && s < S ? a.ts[rs[e]->g * S + s] : 0.0f;
+      }
+      if (l.q == 0) {
+        trow[row[0]] = t[0];
+        trow[row[1]] = t[1];
+      }
+      uint32_t enc[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int e = j & 1, c = 16 * (j >> 2) + 8 * ((j >> 1) & 1) + 2 * l.q;
+        enc[j] = pack_bf16(enc_value(*rs[e], t[e], c), enc_value(*rs[e], t[e], c + 1));
+      }
+      uint32_t hA[64], hB[64];
+      float acc[64];
+      // h0 = relu(enc @ w0 + b0), h1, h2, h3 = relu([enc | h2] @ w3 + b3)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        zero(acc);
+        job128<4, 0>(ring, acc, enc);
+        if (h == 0) bias_relu<0>(acc, a.B + kB0, hA, l);
+        else bias_relu<1>(acc, a.B + kB0, hA, l);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        zero(acc);
+        k256_128<false>(ring, acc, enc, hA);
+        if (h == 0) bias_relu<0>(acc, a.B + kB1, hB, l);
+        else bias_relu<1>(acc, a.B + kB1, hB, l);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        zero(acc);
+        k256_128<false>(ring, acc, enc, hB);
+        if (h == 0) bias_relu<0>(acc, a.B + kB2, hA, l);
+        else bias_relu<1>(acc, a.B + kB2, hA, l);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        zero(acc);
+        k256_128<true>(ring, acc, enc, hA);
+        if (h == 0) bias_relu<0>(acc, a.B + kB3, hB, l);
+        else bias_relu<1>(acc, a.B + kB3, hB, l);
+      }
+      // h4 = h3 @ w4 + b4; sigma = trunc_exp of its column 0 rounded to bf16
+      // (accumulator elements 0 and 2: rows rloc and rloc + 8), zero outside
+      // the box.
+      float a32[32];
+      zero(a32);
+      k256_64(ring, a32, hB);
+      if (l.q == 0) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const RaySlot& s = *rs[e];
+          bool inside = true;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float pc = fmaf(s.d[c], t[e], s.o[c]);
+            inside = inside && pc >= a.box[c] && pc <= a.box[3 + c];
+          }
+          const float h4 = bf16_lo(pack_bf16(a32[2 * e] + a.B[kB4], 0.0f));
+          sig[row[e]] = inside ? expf(fminf(fmaxf(h4, -15.0f), 15.0f)) : 0.0f;
+        }
+      }
+      __syncthreads();
+
+      // The composite, one thread a ray over its rows of the step: the
+      // weights into wrow.
+      if (l.tid < rpt) {
+        const RaySlot& s = slots[l.tid];
+        const int n_s = min(spt, S - step * spt);
+        for (int i = 0; i < n_s; ++i) {
+          const int r = l.tid * spt + i, si = step * spt + i;
+          const float ti = trow[r];
+          const float tn = i + 1 < n_s ? trow[r + 1] : (s.valid && si + 1 < S ? a.ts[s.g * S + si + 1] : 0.0f);
+          const float dl = si == S - 1 ? 1e2f : tn - ti;
+          const float al = 1.0f - expf(-sig[r] * dl * s.dn);
+          wrow[r] = (trans < a.min_trans) ? 0.0f : al * trans;
+          // Written exactly as the reference: (1 - a) + 1e-10, never reassociated.
+          trans = trans * (1.0f - al + 1e-10f);
+        }
+      }
+      if (!kSample) {
+        // K8: the step's weights; a tile's rows are one contiguous run of out.
+        // (K5 goes on to its window while warp 0 scans.)
+        __syncthreads();
+        for (int r = l.tid; r < kTileRows; r += kRowThreads) {
+          const int lr = r / spt, s = step * spt + r - lr * spt;
+          if (lr < rpt && g0 + lr < a.n_rays && s < S) a.out[(g0 + lr) * S + s] = wrow[r];
+        }
+      }
+    }
+
+    if (kSample) {
+      // K5 (one step: spt == nc). Two chains a ray run side by side: ray
+      // r's thread of warp 0 builds its CDF, the defensive mixture w +
+      // mix_ratio mean(w) + 1e-8 over its sum, summed in order; ray r's
+      // thread of the second warpgroup sums its Exp(1) numbers, e_0 + ... +
+      // e_n_draw, then their prefixes e_0 + ... + e_i in place, through
+      // windows of wd numbers a ray (one unless n_draw is large) that the
+      // block loads coalesced. The divisions, which need no order, are
+      // spread over the block.
+      const int nc = S, nv = a.n_rays - g0 < rpt ? int(a.n_rays - g0) : rpt;
+      const int E = a.n_draw + 1, wd = min(E, kUFloats / rpt);
+      const int er = l.tid - kRowThreads / 2;  // this thread's ray of the Exp(1) chain
+      const bool one = wd == E;
+      const float* ex = a.exps + g0 * E;
+      auto load = [&](int w0, int nw) {
+        for (int j = l.tid; j < nv * nw; j += kRowThreads) {
+          const int r = j / nw, i = j - r * nw;
+          win[r * wd + i] = ex[long(r) * E + w0 + i];
+        }
+      };
+      float s_total = 0.0f, prefix = 0.0f;
+      for (int w0 = 0; w0 < E; w0 += wd) {
+        const int nw = min(wd, E - w0);
+        if (w0 > 0) __syncthreads();  // the window before is summed
+        load(w0, nw);
+        __syncthreads();
+        if (w0 == 0 && l.tid < nv) {
+          const float* w = wrow + l.tid * nc;
+          float wsum = 0.0f, total = 0.0f;
+#pragma unroll 4
+          for (int k = 0; k < nc; ++k) wsum = __fadd_rn(wsum, w[k]);
+          const float floor_w = __fmul_rn(a.mix_ratio, wsum / float(nc));
+#pragma unroll 4
+          for (int k = 0; k < nc; ++k)
+            total = __fadd_rn(total, __fadd_rn(__fadd_rn(w[k], floor_w), 1e-8f));
+          rayv[l.tid] = floor_w;
+          rayv[64 + l.tid] = total;
+        }
+        if (er >= 0 && er < nv) {
+#pragma unroll 4
+          for (int i = 0; i < nw; ++i) s_total = __fadd_rn(s_total, win[er * wd + i]);
+        }
+      }
+      if (er >= 0 && er < nv) rayv[128 + er] = s_total;
+      __syncthreads();
+      // Each row's probability (w + floor + 1e-8) / total, then ray tid's
+      // running sum: its CDF.
+      for (int r = l.tid; r < nv * nc; r += kRowThreads) {
+        const int lr = r / nc;
+        cdf[r] = __fadd_rn(__fadd_rn(wrow[r], rayv[lr]), 1e-8f) / rayv[64 + lr];
+      }
+      __syncthreads();
+      if (l.tid < nv) {
+        float* c = cdf + l.tid * nc;
+        float run = 0.0f;
+#pragma unroll 4
+        for (int k = 0; k < nc; ++k) c[k] = run = __fadd_rn(run, c[k]);
+      }
+      for (int w0 = 0; w0 < a.n_draw; w0 += wd) {
+        const int nd = min(wd, a.n_draw - w0);
+        if (!one) {
+          __syncthreads();  // the window before is used up
+          load(w0, nd);
+          __syncthreads();
+        }
+        if (er >= 0 && er < nv) {
+          float* e = win + er * wd;
+#pragma unroll 4
+          for (int i = 0; i < nd; ++i) e[i] = prefix = __fadd_rn(prefix, e[i]);
+        }
+        __syncthreads();
+        // Every thread takes draws, u = prefix / s_total. The bin is the
+        // first k with u < cdf[k], the last if there is none: the CDF never
+        // decreases, so a binary search finds the bin a forward scan would.
+        for (int j = l.tid; j < nv * nd; j += kRowThreads) {
+          const int r = j / nd, i = j - r * nd;
+          const float u = win[r * wd + i] / rayv[128 + r];
+          const float* c = cdf + r * nc;
+          const float* tr = trow + r * nc;
+          int k = 0, k_hi = nc - 1;
+          while (k < k_hi) {
+            const int mid = (k + k_hi) >> 1;
+            if (u < c[mid]) k_hi = mid;
+            else k = mid + 1;
+          }
+          const float cdf_lo = k == 0 ? 0.0f : c[k - 1], cdf_hi = c[k];
+          const float lo = k == 0 ? tr[0] : 0.5f * (tr[k] + tr[k - 1]);
+          const float hi = k == nc - 1 ? tr[nc - 1] : 0.5f * (tr[k + 1] + tr[k]);
+          const float span = cdf_hi - cdf_lo;
+          const float denom = span < 1e-8f ? 1.0f : span;
+          a.out[(g0 + r) * a.n_draw + w0 + i] = lo + __fmul_rn((u - cdf_lo) / denom, hi - lo);
+        }
+      }
+    }
+    __syncthreads();  // the slots, rows and window are free for the next tile
+  }
+}
+
 // Raises a kernel's dynamic shared memory limit to `bytes` once per device
 // (`*configured` remembers the device).
 template <typename Kernel>
@@ -1173,8 +1216,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int* configured) {
   if (err == cudaSuccess) *configured = dev;
   return err;
 }
-
-int blocks_for(int n_rays) { return (n_rays + kRays - 1) / kRays; }
 
 // The row geometry train_kernel.py::train_geometry computes, checked.
 bool rows_ok(int n_rays, int S, int rpt, int spt, int steps) {
@@ -1198,6 +1239,16 @@ int launch_dw(const unsigned char* scratch, int nrb, int parts, float* part, int
   cudaError_t err = allow_smem(dw_gemm, kDwSmem, &configured);
   if (err != cudaSuccess) return int(err);
   dw_gemm<<<dim3(parts, kDwTiles), 256, kDwSmem, st>>>(scratch, nrb, parts, part, first);
+  return int(cudaGetLastError());
+}
+
+
+template <bool kSample>
+int launch_density(const DensityArgs& a, int grid, cudaStream_t st) {
+  static int configured = -1;
+  cudaError_t err = allow_smem(density_rows<kSample>, kDensitySmem, &configured);
+  if (err != cudaSuccess) return int(err);
+  density_rows<kSample><<<grid, kRowThreads, kDensitySmem, st>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -1287,34 +1338,58 @@ extern "C" int d2r_train_bwd(const void* origins, const void* dirs, const void* 
   return int(cudaGetLastError());
 }
 
+// K8 on the weight image img (only its first 32 jobs are read). rpt, spt,
+// steps: the row geometry of train_geometry; grid blocks (one an SM at most)
+// stride over the tiles.
 extern "C" int d2r_density_weights(const void* origins, const void* dirs, const void* ts,
-                                   int n_rays, int S, const void* box, const void* w,
-                                   const void* b, float min_trans, void* out, void* stream) {
+                                   int n_rays, int S, const void* box, const void* img,
+                                   const void* b, float min_trans, int rpt, int spt, int steps,
+                                   int grid, void* out, void* stream) {
   if (n_rays <= 0) return 0;
-  static int configured = -1;
-  if (int err = allow_smem(density_weights_kernel, int(kSmemBytes), &configured)) return err;
-  density_weights_kernel<<<blocks_for(n_rays), kThreads, kSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(origins), static_cast<const float*>(dirs),
-      static_cast<const float*>(ts), n_rays, S, static_cast<const float*>(box),
-      static_cast<const bf16*>(w), static_cast<const float*>(b), min_trans,
-      static_cast<float*>(out));
-  return int(cudaGetLastError());
+  if (!rows_ok(n_rays, S, rpt, spt, steps) || grid <= 0) return int(cudaErrorInvalidValue);
+  DensityArgs a = {};
+  a.origins = static_cast<const float*>(origins);
+  a.dirs = static_cast<const float*>(dirs);
+  a.ts = static_cast<const float*>(ts);
+  a.box = static_cast<const float*>(box);
+  a.B = static_cast<const float*>(b);
+  a.img = static_cast<const unsigned char*>(img);
+  a.n_rays = n_rays;
+  a.S = S;
+  a.rpt = rpt;
+  a.spt = spt;
+  a.steps = steps;
+  a.min_trans = min_trans;
+  a.out = static_cast<float*>(out);
+  return launch_density<false>(a, grid, static_cast<cudaStream_t>(stream));
 }
 
+// K5: nc from 2 to 64 coarse samples a ray (one step of rows), n_draw draws a
+// ray from exps (n_rays x (n_draw + 1)); the geometry and grid as for K8.
 extern "C" int d2r_density_sample(const void* origins, const void* dirs, const void* ts_c,
                                   const void* exps, int n_rays, int nc, int n_draw,
-                                  const void* box, const void* w, const void* b,
-                                  float min_trans, float mix_ratio, void* out, void* stream) {
+                                  const void* box, const void* img, const void* b,
+                                  float min_trans, float mix_ratio, int rpt, int spt, int steps,
+                                  int grid, void* out, void* stream) {
   if (n_rays <= 0) return 0;
-  if (nc < 2 || nc > 64) return int(cudaErrorInvalidValue);
-  static int configured = -1;
-  if (int err = allow_smem(density_sample_kernel, int(kSmemBytes), &configured)) return err;
-  density_sample_kernel<<<blocks_for(n_rays), kThreads, kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(origins), static_cast<const float*>(dirs),
-      static_cast<const float*>(ts_c), static_cast<const float*>(exps), n_rays, nc, n_draw,
-      static_cast<const float*>(box), static_cast<const bf16*>(w), static_cast<const float*>(b),
-      min_trans, mix_ratio, static_cast<float*>(out));
-  return int(cudaGetLastError());
+  if (nc < 2 || nc > 64 || n_draw < 0 || !rows_ok(n_rays, nc, rpt, spt, steps) || grid <= 0)
+    return int(cudaErrorInvalidValue);
+  DensityArgs a = {};
+  a.origins = static_cast<const float*>(origins);
+  a.dirs = static_cast<const float*>(dirs);
+  a.ts = static_cast<const float*>(ts_c);
+  a.box = static_cast<const float*>(box);
+  a.B = static_cast<const float*>(b);
+  a.exps = static_cast<const float*>(exps);
+  a.img = static_cast<const unsigned char*>(img);
+  a.n_rays = n_rays;
+  a.S = nc;
+  a.rpt = rpt;
+  a.spt = spt;
+  a.steps = steps;
+  a.n_draw = n_draw;
+  a.min_trans = min_trans;
+  a.mix_ratio = mix_ratio;
+  a.out = static_cast<float*>(out);
+  return launch_density<true>(a, grid, static_cast<cudaStream_t>(stream));
 }

@@ -21,15 +21,17 @@ same results) on CPU tensors:
 and ``render_rays_train`` is the training renderer (the reference's
 function of the same name).
 
-Weights are packed once per call by ``pack_train_params``: every matrix (K x N)
-row-major for ``x @ W`` in bf16, the transposes the backward multiplies by
-beside them, f32 biases. K5 and K8 read that layout; K6 and K7 stream
+Weights are packed by ``pack_train_params``: every matrix (K x N) row-major
+for ``x @ W`` in bf16, the transposes the backward multiplies by beside
+them, f32 biases; the plain versions read that layout. The kernels stream
 ``wgmma_image``'s (the same matrices cut into the K-tiles their wgmma
-products take, swizzled as shared memory holds them), and
-``train_geometry`` is where their tiles of (ray, sample) rows, K7's chunks
-of rays and its buffers are decided. Gradients come back in ``G_LAYOUT`` (the forward
-matrices' layout, f32) and ``unpack_grads`` maps them to the field's
-(in, out) parameters as the reference's ``_train_bwd`` does.
+products take, swizzled as shared memory holds them; K5 and K8 read its
+first 32 jobs, the density trunk), and ``train_geometry`` is where their
+tiles of (ray, sample) rows, K7's chunks of rays and its buffers are
+decided. ``render_rays_train`` packs once and builds the image once a call,
+for the sampler, K6 and K7 alike. Gradients come back in ``G_LAYOUT`` (the
+forward matrices' layout, f32) and ``unpack_grads`` maps them to the
+field's (in, out) parameters as the reference's ``_train_bwd`` does.
 
 Numerics follow the reference: bf16 matmul inputs with f32 accumulation,
 bf16 rounding between layers (h4 included), f32 trunc_exp / sigmoid /
@@ -109,14 +111,16 @@ TILE_ROWS = 128  # rows of a tile: two warpgroups of 64
 
 
 def train_geometry(n_rays: int, S: int, n_sm: int) -> dict:
-    """Tiles, chunks and buffers of K6 and K7 (the C launch functions check
-    the first three). Rows are (ray, sample) pairs; a tile of ``TILE_ROWS``
+    """Tiles, chunks and buffers of K5-K8 (the C launch functions check the
+    first three). Rows are (ray, sample) pairs; a tile of ``TILE_ROWS``
     holds ``rays_per_tile`` whole rays of S samples, or, for S > 128, one
     ray's next 128 samples, walked in ``steps`` tiles by one block. A group
-    is a tile's rays; K6 runs one block a group, K7 ``chunk_groups`` groups
-    (a tile per SM: the largest chunk one wave runs) at a time, each chunk's row pass then its weight-gradient
-    products, over ``parts`` row ranges. The scratch, bias rows and part sums
-    are sized by the chunk, not by ``n_rays``."""
+    is a tile's rays; K6 runs one block a group, K5 and K8 one block an SM
+    (at most ``groups``) striding over the groups, K7 ``chunk_groups``
+    groups (a tile per SM: the largest chunk one wave runs) at a time, each
+    chunk's row pass then its weight-gradient products, over ``parts`` row
+    ranges. The scratch, bias rows and part sums are sized by the chunk, not
+    by ``n_rays``."""
     if S < 1:
         raise ValueError(f"the training kernels need at least one sample a ray, got {S}")
     if S <= TILE_ROWS:
@@ -460,15 +464,46 @@ def _fn(symbol, argtypes):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _image(w):
+    """Packed w -> the training kernels' weight image (``wgmma_image``),
+    checked against the size the C side streams."""
+    if _fn("d2r_train_image_bytes", [])() != IMAGE_BYTES:
+        raise RuntimeError("csrc/train.cu and WGMMA_JOBS disagree on the weight image")
+    return wgmma_image(w)
+
+
+def _density_launch(name, origins, dirs, ts, box, img, b, extra=()):
+    """K5's or K8's arguments checked, and their rows: (n, S, train_geometry's
+    rays_per_tile, samples_per_tile and steps, blocks: one an SM at most)."""
+    n, S = _ray_args(name, origins, dirs, ts, box, img, b, extra, n_w=IMAGE_BYTES // 2)
+    n_sm = _sm_count(dirs.device)
+    geo = train_geometry(n, S, n_sm)
+    return (n, S, geo["rays_per_tile"], geo["samples_per_tile"], geo["steps"],
+            min(geo["groups"], n_sm))
+
+
 def density_weights(origins, dirs, ts, box, w, b, min_transmittance: float):
     """K8 wrapper: same arguments and result as ``density_weights_plain``."""
     if not dirs.is_cuda:
         return density_weights_plain(origins, dirs, ts, box, w, b, min_transmittance)
-    n, S = _ray_args("density_weights", origins, dirs, ts, box, w, b)
+    _ray_args("density_weights", origins, dirs, ts, box, w, b)
+    return _density_weights_launch(origins, dirs, ts, box, _image(w), b, min_transmittance)
+
+
+def _density_weights_launch(origins, dirs, ts, box, img, b, min_transmittance: float):
+    """K8 on the weight image ``img`` (``_image``; its first 32 jobs, the
+    density trunk) of CUDA tensors."""
+    n, S, rpt, spt, steps, grid = _density_launch("density_weights", origins, dirs, ts, box,
+                                                  img, b)
     out = torch.empty(n, S, dtype=F32, device=dirs.device)
-    err = _fn("d2r_density_weights", [_P] * 3 + [_I, _I] + [_P] * 3 + [_F, _P, _P])(
-        build.ptr(origins), build.ptr(dirs), build.ptr(ts), n, S, build.ptr(box),
-        build.ptr(w), build.ptr(b), float(min_transmittance), build.ptr(out),
+    err = _fn("d2r_density_weights", [_P] * 3 + [_I, _I] + [_P] * 3 + [_F] + [_I] * 4
+              + [_P, _P])(
+        build.ptr(origins), build.ptr(dirs), build.ptr(ts), n, S, build.ptr(box), build.ptr(img),
+        build.ptr(b), float(min_transmittance), rpt, spt, steps, grid, build.ptr(out),
         build.stream_ptr(dirs.device))
     build.check(err, "density_weights")
     density_weights.launches += 1
@@ -484,33 +519,33 @@ def density_sample(origins, dirs, ts_c, exp_draws, box, w, b, n_draw: int,
     if not dirs.is_cuda:
         return density_sample_plain(origins, dirs, ts_c, exp_draws, box, w, b, n_draw,
                                     min_transmittance, mix)
-    n, nc = _ray_args("density_sample", origins, dirs, ts_c, box, w, b,
-                      [("exp_draws", exp_draws, F32, (ts_c.shape[0], n_draw + 1))])
+    _ray_args("density_sample", origins, dirs, ts_c, box, w, b)
+    return _density_sample_launch(origins, dirs, ts_c, exp_draws, box, _image(w), b, n_draw,
+                                  min_transmittance, mix)
+
+
+def _density_sample_launch(origins, dirs, ts_c, exp_draws, box, img, b, n_draw: int,
+                           min_transmittance: float, mix: float):
+    """K5 on the weight image ``img`` of CUDA tensors."""
+    nc = ts_c.shape[1]
     if not 2 <= nc <= 64:
         raise ValueError(f"density_sample: the kernel takes 2 to 64 coarse samples, got {nc}")
+    n, _, rpt, spt, steps, grid = _density_launch(
+        "density_sample", origins, dirs, ts_c, box, img, b,
+        [("exp_draws", exp_draws, F32, (ts_c.shape[0], n_draw + 1))])
     out = torch.empty(n, n_draw, dtype=F32, device=dirs.device)
-    err = _fn("d2r_density_sample", [_P] * 4 + [_I, _I, _I] + [_P] * 3 + [_F, _F, _P, _P])(
+    err = _fn("d2r_density_sample", [_P] * 4 + [_I] * 3 + [_P] * 3 + [_F, _F] + [_I] * 4
+              + [_P, _P])(
         build.ptr(origins), build.ptr(dirs), build.ptr(ts_c), build.ptr(exp_draws), n, nc,
-        n_draw, build.ptr(box), build.ptr(w), build.ptr(b), float(min_transmittance),
-        float(mix / (1.0 - mix)), build.ptr(out), build.stream_ptr(dirs.device))
+        n_draw, build.ptr(box), build.ptr(img), build.ptr(b), float(min_transmittance),
+        float(mix / (1.0 - mix)), rpt, spt, steps, grid, build.ptr(out),
+        build.stream_ptr(dirs.device))
     build.check(err, "density_sample")
     density_sample.launches += 1
     return out
 
 
 density_sample.launches = 0
-
-
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def _image(w):
-    """Packed w -> K6's and K7's weight image (``wgmma_image``), checked
-    against the size the C side streams."""
-    if _fn("d2r_train_image_bytes", [])() != IMAGE_BYTES:
-        raise RuntimeError("csrc/train.cu and WGMMA_JOBS disagree on the weight image")
-    return wgmma_image(w)
 
 
 def train_fwd(origins, dirs, ts, box, w, b, min_transmittance: float):
@@ -638,19 +673,15 @@ _PARAM_KEYS = ("trunk_w0", "trunk_b0", "trunk_w1", "trunk_b1", "trunk_w2", "trun
 
 
 class _RenderTrainFused(torch.autograd.Function):
-    """K6 forward, K7 backward. The forward builds the weight image once for
-    both and saves its outputs; the backward returns the field's (in, out)
-    gradients, zeros for ts, and zeros for the rays unless need_ray_grads.
-    CPU tensors take the plain versions on the packed weights."""
+    """K6 forward, K7 backward, both on the packed weights ``wk`` (the weight
+    image on CUDA, ``pack_train_params``' w on the CPU) and biases ``b``
+    that the caller made once; the forward saves its outputs. The backward
+    returns the field's (in, out) gradients, zeros for ts, and zeros for the
+    rays unless need_ray_grads. CPU tensors take the plain versions."""
 
     @staticmethod
-    def forward(ctx, origins, dirs, ts, box, min_transmittance, need_ray_grads, *params):
-        w, b = pack_train_params(dict(zip(_PARAM_KEYS, params)))
-        if dirs.is_cuda:
-            _ray_args("train_fwd", origins, dirs, ts, box, w, b)
-            wk, fwd = _image(w), _train_fwd_launch
-        else:
-            wk, fwd = w, train_fwd_plain
+    def forward(ctx, origins, dirs, ts, box, min_transmittance, need_ray_grads, wk, b, *params):
+        fwd = _train_fwd_launch if dirs.is_cuda else train_fwd_plain
         rgb, alpha, depth = fwd(origins, dirs, ts, box, wk, b, min_transmittance)
         ctx.save_for_backward(origins, dirs, ts, box, wk, b, rgb, alpha, depth)
         ctx.min_transmittance = min_transmittance
@@ -666,23 +697,32 @@ class _RenderTrainFused(torch.autograd.Function):
         grads, d_o, d_d = bwd(origins, dirs, ts, box, wk, b, ctx.min_transmittance,
                               *cots, rgb, alpha, depth, ctx.need_ray_grads)
         per_param = unpack_grads(grads)
-        return (d_o, d_d, torch.zeros_like(ts), None, None, None,
+        return (d_o, d_d, torch.zeros_like(ts), None, None, None, None, None,
                 *(per_param[k] for k in _PARAM_KEYS))
 
 
+def _packed(field: NGPField, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The field's weights as the kernels read them, made once: (the weight
+    image on CUDA, the packed w on the CPU; the biases)."""
+    w, b = pack_train_params(field.params())
+    return (_image(w) if device.type == "cuda" else w), b
+
+
 def render_train_fused(field: NGPField, origins, dirs, ts, min_transmittance: float = 1e-4,
-                       need_ray_grads: bool = True) -> dict[str, torch.Tensor]:
+                       need_ray_grads: bool = True, packed=None) -> dict[str, torch.Tensor]:
     """Differentiable fused training render. origins/dirs (R, 3) world (dirs
     z-normalized, not unit); ts (R, S) sorted (constants in the backward).
     -> rgb (R, 3) premultiplied linear, alpha (R,), depth (R,).
 
     need_ray_grads=False (extrinsics frozen) skips the origin/dir chain in
     K7 and returns zero ray gradients; parameter gradients are bit-identical
-    either way."""
+    either way. ``packed``: the field's current weights as ``_packed`` makes
+    them, when the caller has them already."""
     p = field.params()
+    wk, b = _packed(field, dirs.device) if packed is None else packed
     rgb, alpha, depth = _RenderTrainFused.apply(
         origins.to(F32).contiguous(), dirs.to(F32).contiguous(), ts.to(F32).contiguous(),
-        field_box(field.cfg, dirs.device), float(min_transmittance), bool(need_ray_grads),
+        field_box(field.cfg, dirs.device), float(min_transmittance), bool(need_ray_grads), wk, b,
         *(p[k] for k in _PARAM_KEYS))
     return {"rgb": rgb, "alpha": alpha, "depth": depth}
 
@@ -740,24 +780,27 @@ def render_rays_train(field: NGPField, origins, dirs, settings: RenderSettings,
     dev = dirs.device
     ts_c, valid = coarse_samples(cfg, origins.detach(), dirs.detach(), settings, generator)
 
+    packed = _packed(field, dev)  # one pack (and on CUDA one image) for the sampler, K6, K7
     if settings.n_fine > 0:
-        w, b = pack_train_params(field.params())
+        wk, b = packed
         box = field_box(cfg, dev)
         o_sg, d_sg = origins.detach(), dirs.detach()
         if generator is not None and fused_sampler_default():
             n_draw = settings.n_coarse + settings.n_fine
             draws = exp_draws(origins.shape[0], n_draw, generator, dev)
-            ts_all = density_sample(o_sg, d_sg, ts_c, draws, box, w, b, n_draw,
-                                    settings.min_transmittance, sampler_mix_default())
+            sample = _density_sample_launch if dirs.is_cuda else density_sample_plain
+            ts_all = sample(o_sg, d_sg, ts_c, draws, box, wk, b, n_draw,
+                            settings.min_transmittance, sampler_mix_default())
         else:
-            w_c = density_weights(o_sg, d_sg, ts_c, box, w, b, settings.min_transmittance)
+            weights = _density_weights_launch if dirs.is_cuda else density_weights_plain
+            w_c = weights(o_sg, d_sg, ts_c, box, wk, b, settings.min_transmittance)
             ts_f = sample_pdf(ts_c, w_c, settings.n_fine, generator)
             ts_all = torch.sort(torch.cat([ts_c, ts_f], dim=-1), dim=-1).values
     else:
         ts_all = ts_c
 
     out = render_train_fused(field, origins, dirs, ts_all.contiguous(),
-                             settings.min_transmittance, need_ray_grads)
+                             settings.min_transmittance, need_ray_grads, packed)
     zero = torch.zeros_like(out["alpha"])
     return {
         "rgb": torch.where(valid[:, None], out["rgb"], torch.zeros_like(out["rgb"])),

@@ -288,7 +288,7 @@ def _cos(a, b):
 
 def test_train_kernels_match_plain(dev):
     """K5-K8 against their plain versions; 300 rays, not a multiple of the
-    kernels' 64-ray block."""
+    kernels' tiles."""
     from dream2real_tpu_torch.nerf import train_kernel as tk
 
     R, S = 300, 16
@@ -395,6 +395,126 @@ def test_rays_past_the_end_add_zero(dev, R, S):
                               *(x[:R].contiguous() for x in out), True)
     assert torch.equal(g0, g1)
     assert torch.equal(go0, go1[:R]) and float(go1[R:].abs().max()) == 0.0
+
+
+def _sampler_inputs(dev, R, S, seed):
+    """_train_inputs with every seventh ray (from the fourth) turned to miss
+    the field's box: its samples all lie outside, so its weights are zero."""
+    field, o, d, ts, box, w, b, rng = _train_inputs(dev, R, S, seed=seed)
+    o[3::7] = torch.tensor([0.5, 0.0, 5.0], device=dev)
+    d[3::7] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    return o, d, ts, box, w, b, rng
+
+
+def _k8_against_plain(o, d, ts, box, w, b, min_t):
+    """K8 and its plain version, and where their transmittance cuts differ:
+    a sample that one cuts (weight 0, though the sample has density) and the
+    other keeps. Each such sample is shown a tie: the plain version's
+    transmittance before it (its own trunk and scan, which do not depend on
+    the cut) lies within 1% of min_t, where one rounding of the kernel's
+    falls on the other side. -> (kernel, plain, the plain's uncut weights,
+    flipped (R, S) bool)."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    got = tk.density_weights(o, d, ts, box, w, b, min_t)
+    ref = tk.density_weights_plain(o, d, ts, box, w, b, min_t)
+    uncut_k = tk.density_weights(o, d, ts, box, w, b, 0.0)
+    uncut_p = tk.density_weights_plain(o, d, ts, box, w, b, 0.0)
+    flips = ((got == 0.0) & (uncut_k != 0.0)) != ((ref == 0.0) & (uncut_p != 0.0))
+    mats, biases = tk._unpack(w, b)
+    geo = tk._Geom(o, d, box)
+    dl = tk._deltas(ts)
+    trans = torch.ones(ts.shape[0], dtype=torch.float32, device=ts.device)
+    before = []
+    for s in range(ts.shape[1]):
+        enc, _, inside = geo.sample(ts[:, s])
+        a = 1.0 - torch.exp(-tk._sigma(tk._trunk(enc, mats, biases)[4], inside) * dl[:, s] * geo.dn)
+        before.append(trans)
+        trans = trans * (1.0 - a + 1e-10)
+    tie = (torch.stack(before, dim=1) - min_t).abs() <= 1e-2 * min_t
+    assert bool(tie[flips].all()), "a cut that differs away from a tie"
+    return got, ref, uncut_p, flips
+
+
+@pytest.mark.parametrize("min_t", [1e-4, 0.5])
+@pytest.mark.parametrize("S", [2, 17, 32, 48, 64, 160])
+@pytest.mark.parametrize("R", [1, 300, 8192])
+def test_density_weights_matches_plain_and_k6(dev, R, S, min_t):
+    """K8 against its plain version (5e-3), with rays that miss the box, a
+    transmittance cut that is reached (min_t 0.5) and S = 160 (two steps a
+    ray); where the two cut differently (a shown tie, _k8_against_plain:
+    under 0.5% of the samples) the kernel's weight is the plain version's
+    uncut one. Bit-identical from call to call, one launch a call; and K6's
+    alpha on the same inputs is the in-order f32 sum of K8's weights, bit
+    for bit (the same trunk and scan on the same tiles)."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    o, d, ts, box, w, b, _ = _sampler_inputs(dev, R, S, seed=R + S)
+    before = tk.density_weights.launches
+    got, ref, uncut, flips = _k8_against_plain(o, d, ts, box, w, b, min_t)
+    assert not bool((((got - ref).abs() > 5e-3) & ~flips).any()), float((got - ref).abs().max())
+    assert not bool((((got - uncut).abs() > 5e-3) & flips & (got != 0.0)).any())
+    assert int(flips.sum()) <= max(1.0, 5e-3 * flips.numel())
+    assert torch.equal(tk.density_weights(o, d, ts, box, w, b, min_t), got)
+    assert tk.density_weights.launches - before == 3
+    if R > 3:
+        assert float(got[3::7].abs().max()) == 0.0
+    if min_t == 0.5 and R > 1 and S > 2:
+        # The cut is reached before a ray's last sample: the weights before
+        # it sum past 0.5 on some ray, whose later weights are then zero.
+        assert float(ref[:, :-1].sum(dim=1).max()) > 0.5
+    alpha = torch.zeros(R, dtype=torch.float32, device=dev)
+    for s in range(S):
+        alpha = alpha + got[:, s]
+    assert torch.equal(tk.train_fwd(o, d, ts, box, w, b, min_t)[1], alpha)
+
+
+@pytest.mark.parametrize("mix, min_t", [(0.25, 1e-4), (0.5, 1e-4), (0.5, 0.5)])
+@pytest.mark.parametrize("S", [2, 17, 32, 48, 64])
+@pytest.mark.parametrize("R", [1, 300, 8192])
+def test_density_sample_matches_plain(dev, R, S, mix, min_t):
+    """K5 against its plain version (1e-2, chip_smoke.py's bound) on every
+    ray whose coarse weights K8 and the plain version cut alike (the others,
+    shown ties of the transmittance cut, under 2% of the rays), its draws
+    sorted and inside the coarse range on every ray, with rays that miss the
+    box and a cut that is reached; bit-identical from call to call, one
+    launch a call. 64 draws a ray: at S = 32 a tile's 4 rays hold one draw a
+    thread."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    o, d, ts, box, w, b, rng = _sampler_inputs(dev, R, S, seed=R + S + 1)
+    n_draw = 64
+    exps = torch.tensor(-np.log(rng.uniform(1e-12, 1.0, (R, n_draw + 1))), dtype=torch.float32,
+                        device=dev)
+    args = (o, d, ts, exps, box, w, b, n_draw, min_t, mix)
+    before = tk.density_sample.launches
+    got = tk.density_sample(*args)
+    tied = _k8_against_plain(o, d, ts, box, w, b, min_t)[3].any(dim=1)
+    assert int(tied.sum()) <= max(1.0, 2e-2 * R)
+    torch.testing.assert_close(got[~tied], tk.density_sample_plain(*args)[~tied], atol=1e-2,
+                               rtol=0)
+    assert torch.equal(tk.density_sample(*args), got)
+    assert tk.density_sample.launches - before == 2
+    assert float((got[:, 1:] - got[:, :-1]).min()) >= -1e-6
+    assert bool((got >= ts[:, :1] - 1e-5).all()) and bool((got <= ts[:, -1:] + 1e-5).all())
+
+
+@pytest.mark.parametrize("R, S, n_draw", [(300, 2, 300), (65, 4, 2100), (3, 64, 5000)])
+def test_density_sample_draws_in_windows(dev, R, S, n_draw):
+    """K5 with more Exp(1) numbers a tile than its shared-memory window
+    holds (64 rays x 301, 32 x 2101, 2 x 5001 against 8192): the draws are
+    taken window by window, still against the plain version at 1e-2, sorted
+    and inside the coarse range."""
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    o, d, ts, box, w, b, rng = _sampler_inputs(dev, R, S, seed=R + S + n_draw)
+    exps = torch.tensor(-np.log(rng.uniform(1e-12, 1.0, (R, n_draw + 1))), dtype=torch.float32,
+                        device=dev)
+    args = (o, d, ts, exps, box, w, b, n_draw, 1e-4, 0.5)
+    got = tk.density_sample(*args)
+    torch.testing.assert_close(got, tk.density_sample_plain(*args), atol=1e-2, rtol=0)
+    assert float((got[:, 1:] - got[:, :-1]).min()) >= -1e-6
+    assert bool((got >= ts[:, :1] - 1e-5).all()) and bool((got <= ts[:, -1:] + 1e-5).all())
 
 
 def test_render_rays_train_on_the_card(dev, monkeypatch):

@@ -245,6 +245,34 @@ def test_miss_rays_zero_output_and_grad(fields):
     field.zero_grad()
 
 
+@pytest.mark.parametrize("sampler, n_fine, generator", [
+    ("1", 8, True), ("0", 8, True), ("1", 8, False), ("1", 0, True)])
+def test_render_rays_train_packs_the_field_once(fields, monkeypatch, sampler, n_fine, generator):
+    """One render_rays_train call, forward and backward, packs the field's
+    weights once (looked up through the module, as tools/train_trajectory.py
+    wraps it) for the sampler (K5, or K8 and sample_pdf), K6 and K7."""
+    _, field, _, _, _ = fields
+    o, d, _, _ = _rays(32, seed=4)
+    st = RenderSettings(n_coarse=8, n_fine=n_fine, near=0.05, far=2.0)
+    monkeypatch.setenv("D2R_FUSED_SAMPLER", sampler)
+    pack, calls = ttk.pack_train_params, []
+
+    def counted(p):
+        calls.append(1)
+        return pack(p)
+
+    monkeypatch.setattr(ttk, "pack_train_params", counted)
+    field.zero_grad()
+    gen = torch.Generator().manual_seed(2) if generator else None
+    out = ttk.render_rays_train(field, *_t(o, d), st, gen)
+    (out["rgb"].sum() + out["alpha"].sum()).backward()
+    assert len(calls) == 1
+    assert float(out["alpha"].detach().max()) > 0.0
+    for k, p in field.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), k
+    field.zero_grad()
+
+
 @pytest.mark.parametrize("change", [
     {}, {"field_type": "hashgrid"}, {"mlp_width": 128}, {"skip_layer": 2}, {"sh_degree": 3},
 ])
@@ -270,12 +298,13 @@ def _tile_rows(geo, n_rays, S):
 
 
 @pytest.mark.parametrize("R, S", [(1, 1), (63, 33), (64, 64), (65, 65), (300, 128), (5, 200),
-                                  (8191, 2), (8192, 64)])
+                                  (8191, 2), (8192, 64), (300, 17), (8192, 32), (300, 48),
+                                  (2, 160)])
 def test_train_geometry_tiles_every_row_once(R, S):
-    """K6 / K7's tiles: every (ray, sample) row lands in exactly one tile
-    row, a ray's rows stay in one group (whole rays share a tile, or one
-    block walks a long ray's steps in order), and K7's scratch follows the
-    chunk, not R."""
+    """K5-K8's tiles (K5's and K8's shapes too: S 17, 32, 48, 160): every
+    (ray, sample) row lands in exactly one tile row, a ray's rows stay in
+    one group (whole rays share a tile, or one block walks a long ray's
+    steps in order), and K7's scratch follows the chunk, not R."""
     geo = ttk.train_geometry(R, S, 132)
     rpt, spt = geo["rays_per_tile"], geo["samples_per_tile"]
     assert rpt * spt <= ttk.TILE_ROWS and geo["steps"] * spt >= S
