@@ -1,5 +1,7 @@
-"""Drive the PyTorch/CUDA port on one GPU: train the NeRF field, imagine and
-score with it, run the grid scorer on it, and run the attention bench.
+"""Drive the PyTorch/CUDA port on one GPU: train the NeRF field, build the
+physics models of its scan and check the configs' pose grids, imagine and
+score with the field, run the grid scorer on it (with and without the
+physics check), and run the attention bench.
 
     python3 chip_smoke.py            # needs one card
     python3 chip_smoke.py --profile  # also print torch.profiler tables of
@@ -53,6 +55,18 @@ Phases (any failure raises; the exit code is then nonzero):
                 two fresh 20-step runs from one seed bit-identical; a 20-step
                 run with D2R_FUSED_SAMPLER=0, which launches K8; five steps
                 under the profiler: the device time a step, by kernel
+  P physics     on phase T's scan (36 x 336^2): TaskModel.create_lazy_phys_mods
+                over the shopping configs' bounds at 4 mm (two 200 x 450 x
+                309 grids; fusion, host mesh extraction and the whole call
+                timed; the cache replayed with identical handles);
+                make_unsupcol_check over the shopping grid (70,000 poses:
+                valid share, poses/s, one chunk under the profiler, the
+                card's mask against the CPU path's on 2,048 poses, every
+                difference a tie) and over the shelf grid (2,211,840 poses,
+                829,440 dedup survivors in chunks of D2R_PHYS_CHUNK: seconds,
+                peak memory, chunked == one launch on 16,384 survivors); the
+                oracle experiment at its defaults (agreement 1.0 beyond the
+                structural band, n >= 100)
   3 main path   bench.py's workload on the trained field: synth scene, 336^2
                 view, plain-torch background render, random-weight
                 ViT-L/14-336, hash-tokenized captions through encode_text
@@ -81,7 +95,10 @@ Phases (any failure raises; the exit code is then nonzero):
                 make_imagine_and_score's, launch counts as the group count
                 predicts, one saved PNG decoded against its render; the
                 saving run again with D2R_WRITER_THREADS=2; 256 poses under
-                D2R_ATTN_FUSED_LN=0 (K3 on the path)
+                D2R_ATTN_FUSED_LN=0 (K3 on the path); the 512 poses again
+                with phys_check=make_unsupcol_check(...) built from phase
+                P's models: the pass count, the mask against the CPU path's,
+                the valid poses' raw scores against the unmasked run's
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
 
@@ -235,6 +252,231 @@ def k1_gaps(got, ref):
 # device's time, not the wrapper's and the host's launch path).
 QUEUED = 10
 TRAIN_QUEUED = 3
+
+
+# Phase P: the shopping configs' physics bounds and 4 mm voxels, their
+# sampling grid, the shelf configs' sampling resolution (and orientation
+# ranges), the oracle experiment's defaults; card-vs-CPU masks on a subset of
+# P2_SUBSET poses; a mask difference must be a tie: some sampled value of the
+# pose within TIE of occ_thresh (0.5).
+PHYS_BOUNDS = [[0.2, -0.4, 0.0], [1.0, 1.4, 1.2]]
+PHYS_VOXEL = 0.004
+P2_RES = [100, 100, 7, 1, 1, 1]
+P2_SUBSET = 2048
+P3_RES = [60, 16, 36, 4, 4, 4]
+P3_SINGLE = 16384
+P4_GRID = [12, 12, 7, 1, 1, 4]
+TIE = 1e-5
+
+
+def masks_against_cpu(check_cpu, pose_batch, mask_dev) -> tuple[int, float]:
+    """The card's mask against the CPU path's on the same poses ->
+    (differences, the largest of their least |sample - 0.5|); raises unless
+    every difference is a tie."""
+    mask_cpu = check_cpu(pose_batch).numpy()
+    differ = np.flatnonzero(mask_cpu != mask_dev)
+    gap = 0.0
+    if len(differ):
+        s = check_cpu.samples(pose_batch[differ])
+        gap = float((s - 0.5).abs().amin(dim=(0, 2)).max())
+        if gap > TIE:
+            raise AssertionError(f"{len(differ)} masks differ between the card and the CPU, "
+                                 f"not all at ties (largest least gap {gap})")
+    return len(differ), gap
+
+
+def physics_phase(dev, smi, depths=None, views=36, res=336) -> dict:
+    """Phase P on phase T's scan (the synth scene at res^2, `views` orbit
+    views; `depths` its depths on the card, re-rendered when None). ->
+    {"bg", "fg", "init"}: the physics models phase 5's check is built from."""
+    from dream2real_tpu_torch.data import synth
+    from dream2real_tpu_torch.experiments import physics_oracle
+    from dream2real_tpu_torch.physics import models as pm
+    from dream2real_tpu_torch.physics.collision import (
+        make_unsupcol_check, orientation_dedup_mask,
+    )
+    from dream2real_tpu_torch.physics.tsdf import grid_coords
+    from dream2real_tpu_torch.sampling import SCENE_TYPE_BOUNDS, sample_poses_grid
+    from dream2real_tpu_torch.scene_model import TaskModel
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def peak_mb():
+        return torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else 0.0
+
+    def reset_peak():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    t_p = time.perf_counter()
+    scene = synth.default_scene()
+    f = 0.9 * res
+    K = np.array([[f, 0, res / 2], [0, f, res / 2], [0, 0, 1.0]])
+    cams = synth.orbit_poses(scene.centre, views, radius=0.5, height=0.4)
+    rendered = [synth.render_scene(scene, pose, K, res, res) for pose in cams]
+    scan_depths = torch.as_tensor(np.stack([r[1] for r in rendered]), device=dev)
+    if depths is not None and not torch.equal(depths, scan_depths):
+        raise AssertionError("phase P: the scan's depths are not phase T's")
+
+    class Scan:
+        """A duck-typed SceneModel: phase T's scan with its instance ids
+        (1 = the movable box)."""
+        depths = scan_depths
+        opt_cam_poses = list(cams.astype(np.float32))
+        intrinsics = K
+        masks = np.stack([r[2] for r in rendered])
+        distortion = None
+
+    class Movable:
+        mask_idx = 1
+
+    # P1: the lazy two-body models at the configs' size.
+    phys_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_phys")
+    shutil.rmtree(phys_dir, ignore_errors=True)
+    sync()
+    t0 = time.perf_counter()
+    handles, inits = TaskModel.create_lazy_phys_mods(Scan, Movable, PHYS_BOUNDS, phys_dir,
+                                                     voxel_size=PHYS_VOXEL, device=dev)
+    t_build = time.perf_counter() - t0
+    stages = {k: round(v, 3) for k, v in pm.LAST_BUILD_INFO["stage_s"].items()}
+    bg, fg = handles
+    z_pad = 3.0 * PHYS_VOXEL + 0.02 + PHYS_VOXEL
+    _, dims = grid_coords([[*PHYS_BOUNDS[0][:2], PHYS_BOUNDS[0][2] - z_pad], PHYS_BOUNDS[1]],
+                          PHYS_VOXEL)
+    n_pts = [int((h.points[:, 3] > 0).sum()) for h in handles]
+    grid_mb = (bg.tsdf.tsdf.numel() + bg.tsdf.weight.numel()) * 4 / 1e6
+    log(f"  P1 create_lazy_phys_mods: 2 grids of {tuple(bg.tsdf.shape)} voxels "
+        f"({bg.tsdf.tsdf.numel():,}), {grid_mb:.1f} MB each (tsdf + weight, f32); "
+        f"{views} frames of {res}^2; points bg {n_pts[0]} of {len(bg.points)}, movable "
+        f"{n_pts[1]} of {len(fg.points)}; seconds: fusion {stages.get('fuse', 0):.3f} "
+        f"(synchronised), mesh extraction (host) {stages.get('mesh', 0):.3f}, points "
+        f"{stages.get('points', 0):.3f}, artifacts {stages.get('save', 0):.3f}, the whole call "
+        f"{t_build:.3f}; movable init pose t = {np.round(inits[1][:3, 3], 4).tolist()} "
+        f"({smi})")
+    if tuple(bg.tsdf.shape) != dims or tuple(fg.tsdf.shape) != dims or n_pts[1] == 0:
+        raise AssertionError(f"P1: grids {bg.tsdf.shape} / {fg.tsdf.shape} (want {dims}), "
+                             f"movable points {n_pts[1]}")
+    box = scene.boxes[0]
+    centre_xy = (np.asarray(box.lo[:2]) + np.asarray(box.hi[:2])) / 2
+    if np.abs(inits[1][:2, 3] - centre_xy).max() > 0.02:
+        raise AssertionError(f"P1: the movable's init pose {inits[1][:3, 3]} is off its box")
+    t0 = time.perf_counter()
+    again, inits_again = TaskModel.create_lazy_phys_mods(
+        Scan, Movable, PHYS_BOUNDS, phys_dir, use_cache=True, voxel_size=PHYS_VOXEL, device=dev)
+    t_replay = time.perf_counter() - t0
+    for a, b, ia, ib in zip(handles, again, inits, inits_again):
+        if not (a.mesh_path == b.mesh_path and np.array_equal(ia, ib)
+                and np.array_equal(a.points, b.points) and a.tsdf.voxel_size == b.tsdf.voxel_size
+                and all(torch.equal(getattr(a.tsdf, k), getattr(b.tsdf, k))
+                        for k in ("tsdf", "weight", "origin"))):
+            raise AssertionError("P1: the cached replay's handles differ")
+    log(f"  P1 replay with use_cache=True: identical handles in {t_replay:.3f} s")
+    shutil.rmtree(phys_dir, ignore_errors=True)
+
+    # P2: the check over the shopping configuration's grid.
+    grid2 = sample_poses_grid(scene.centre, P2_RES, scene_type=3)
+    check2 = make_unsupcol_check(bg.tsdf, fg.points, inits[1], scene.centre, P2_RES, device=dev)
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    valid2 = check2(grid2)
+    sync()
+    t2 = time.perf_counter() - t0
+    mask2 = valid2.cpu().numpy()
+    sub = np.unique(np.linspace(0, len(grid2) - 1, P2_SUBSET).round().astype(int))
+    cpu_check2 = make_unsupcol_check(bg.tsdf.to("cpu"), fg.points, inits[1], scene.centre,
+                                     P2_RES, device="cpu")
+    t0 = time.perf_counter()
+    n_diff2, gap2 = masks_against_cpu(cpu_check2, grid2[sub], mask2[sub])
+    t2_cpu = time.perf_counter() - t0
+    log(f"  P2 check over {P2_RES} ({len(grid2):,} poses, scene_type 3): {int(mask2.sum()):,} "
+        f"valid ({mask2.mean() * 100:.2f}%), {t2:.3f} s = {len(grid2) / t2:,.0f} poses/s in "
+        f"{check2.last_chunks} chunks, peak device memory {peak_mb():.0f} MiB ({smi}); card vs "
+        f"CPU on {len(sub)} poses spread over the grid: {n_diff2} differences (each a tie, "
+        f"least |sample - 0.5| at most {gap2:.1e}); the CPU path took {t2_cpu:.2f} s")
+    if not 0 < mask2.sum() < len(grid2):
+        raise AssertionError("P2: the grid exercises one outcome only")
+    if dev.type == "cuda":
+        # One full chunk of the geometric tests under the profiler: where a
+        # later kernel would start from.
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        chunk = torch.as_tensor(grid2[:16384].reshape(-1, 4, 4), device=dev)
+        check2.geom(chunk)
+        sync()
+        t0 = time.perf_counter()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            check2.geom(chunk)
+            sync()
+        wall_c = (time.perf_counter() - t0) * 1e3
+        by_kernel = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            us = ev.cuda_time_total if us is None else us
+            if us > 0:
+                by_kernel[ev.key] = (us / 1e3, ev.count)
+        dev_c = sum(ms for ms, _ in by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:4]
+        log(f"  P2 one chunk of 16384 poses x {len(fg.points)} points under the profiler: "
+            f"{dev_c:.2f} ms of device time in {sum(c for _, c in by_kernel.values())} kernel "
+            f"launches, {wall_c:.2f} ms of wall (device idle "
+            f"{max(0.0, 1 - dev_c / wall_c) * 100:.1f}%); most: "
+            + "; ".join(f"{k[:60]} {ms:.2f} ms x {c}" for k, (ms, c) in top))
+        if dev_c <= 0:
+            raise AssertionError("P2: the profiler shows no device time")
+
+    # P3: shelf-scale chunking: the shelf's resolution and orientations over
+    # the shopping type's positions, which land on the synth table.
+    shelf_bounds = SCENE_TYPE_BOUNDS[3][:3] + SCENE_TYPE_BOUNDS[1][3:]
+    t0 = time.perf_counter()
+    grid3 = sample_poses_grid(scene.centre, P3_RES, bounds_override=shelf_bounds)
+    t_gen = time.perf_counter() - t0
+    check3 = make_unsupcol_check(bg.tsdf, fg.points, inits[1], scene.centre, P3_RES, device=dev)
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    valid3 = check3(grid3)
+    sync()
+    t3 = time.perf_counter() - t0
+    peak3 = peak_mb()
+    mask3 = valid3.cpu().numpy()
+    oris = P3_RES[3] * P3_RES[4] * P3_RES[5]
+    positions = len(grid3) // oris
+    keep = orientation_dedup_mask(torch.as_tensor(grid3[:oris].reshape(-1, 4, 4)), oris).numpy()
+    surv = np.flatnonzero(np.tile(keep, positions))
+    dead = np.ones(len(grid3), bool)
+    dead[surv] = False
+    pick = surv[np.unique(np.linspace(0, len(surv) - 1, P3_SINGLE).round().astype(int))]
+    single = check3.geom(torch.as_tensor(grid3[pick].reshape(-1, 4, 4), device=dev)).cpu().numpy()
+    log(f"  P3 check over {P3_RES} ({len(grid3):,} poses; generated on the host in "
+        f"{t_gen:.2f} s): {check3.last_survivors:,} dedup survivors ({int(keep.sum())} of {oris} "
+        f"orientations a position), {check3.last_chunks} chunks of "
+        f"{os.environ.get('D2R_PHYS_CHUNK', '16384')}, {int(mask3.sum()):,} valid; {t3:.3f} s "
+        f"= {len(grid3) / t3:,.0f} poses/s ({check3.last_survivors / t3:,.0f} survivors/s), "
+        f"peak device memory {peak3:.0f} MiB ({smi}); chunked == one launch on {len(pick)} "
+        f"survivors: {bool(np.array_equal(single, mask3[pick]))}")
+    if check3.last_survivors != int(keep.sum()) * positions or not np.array_equal(
+            single, mask3[pick]) or mask3[dead].any():
+        raise AssertionError("P3: survivors, or chunked against one launch, are off")
+    if P3_RES == [60, 16, 36, 4, 4, 4] and check3.last_survivors != 829440:
+        raise AssertionError(f"P3: {check3.last_survivors} survivors, not 829,440")
+
+    # P4: the oracle experiment at its defaults.
+    t0 = time.perf_counter()
+    out4 = physics_oracle.run(P4_GRID, PHYS_VOXEL, n_views=10, res=336, device=dev)
+    t4 = time.perf_counter() - t0
+    band = out4["bands"]["above_table_beyond_structural"]
+    log(f"  P4 oracle ({P4_GRID}, {PHYS_VOXEL * 1000:.0f} mm, 10 views, 336^2; {t4:.2f} s): "
+        f"{out4['n_poses']} poses, SDF valid {out4['sdf_valid_frac']:.4f}, oracle valid "
+        f"{out4['oracle_valid_frac']:.4f}, agreement {out4['agreement']:.4f} "
+        f"({out4['n_disagree']} disagree, at most {out4['disagree_margin_max_above_table']:.4f} "
+        f"m from a boundary above the table; structural band {out4['structural_band']:.4f}); "
+        f"beyond the structural band above the table {band['agreement']} over n = {band['n']}")
+    physics_oracle.check_agreement(out4, min_n=100)
+    log(f"  phase P took {time.perf_counter() - t_p:.1f} s of wall")
+    return {"bg": bg, "fg": fg, "init": inits[1]}
 
 
 def main() -> int:
@@ -1168,6 +1410,10 @@ def main() -> int:
                              else train_launches)[k["name"]]
     field = field_t
 
+    # ------------------------------------------------------------- P physics
+    phase("P physics (create_lazy_phys_mods, make_unsupcol_check, the oracle) on phase T's scan")
+    phys = physics_phase(dev, smi, depths=st["data"]["depths"])
+
     # -------------------------------------------------------- 3 main path
     phase("3 main path (bench.py workload, 512 poses)")
     wrappers = {"march (K1)": mk.march, "ln_qkv_attention (K2)": att.mha_ln_qkv,
@@ -1497,7 +1743,7 @@ def main() -> int:
                        for s in range(0, len(grid5), dispatch)]).cpu().numpy()
     groups5 = len(grid5) // clip_batch
 
-    def drive(save, sample_res=res5):
+    def drive(save, sample_res=res5, phys_check=None):
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -1505,6 +1751,7 @@ def main() -> int:
         best_, batch_, scores_ = scoring.optimise_pose_grid(
             renderer, gt_depth[None], [0], TaskModel, out_dir, sample_res=sample_res,
             scene_type=3, clip_scorer=scorer, tokenizer=hash_tokenize, save_renders=save,
+            phys_check=phys_check,
         )
         torch.cuda.synchronize()
         return (best_, batch_, scores_, dict(scoring.LAST_RUN_INFO),
@@ -1582,6 +1829,39 @@ def main() -> int:
             or launches0["ln_qkv_gemm (inside K2)"] != 0
             or launches0["attention_qkv (K3)"] != 23 * (256 // clip_batch)):
         raise AssertionError(f"grid scorer, split attention path: {info0}, {launches0}")
+    # The same grid through phase P's validity check (its models: the lazy
+    # two-body build of phase T's scan), as the engine filters it.
+    from dream2real_tpu_torch.physics.collision import make_unsupcol_check
+
+    check5 = make_unsupcol_check(phys["bg"].tsdf, phys["fg"].points, phys["init"], scene.centre,
+                                 res5, device=dev)
+    seen5 = []
+
+    def phys_check5(pose_batch_):
+        mask_ = check5(pose_batch_)
+        seen5.append(mask_.cpu().numpy())
+        return mask_
+
+    *_, info_p, launches_p, wall_p = drive(False, phys_check=phys_check5)
+    mask5 = seen5[0]
+    cpu_check5 = make_unsupcol_check(phys["bg"].tsdf.to("cpu"), phys["fg"].points, phys["init"],
+                                     scene.centre, res5, device="cpu")
+    n_diff5, gap5 = masks_against_cpu(cpu_check5, grid5.reshape(-1, 16), mask5)
+    raw_p, raw_u = info_p["raw_scores"], runs5[False][3]["raw_scores"]
+    same5 = bool(np.array_equal(raw_p[mask5], raw_u[mask5]))
+    gap_s = float(np.abs(raw_p[mask5] - raw_u[mask5]).max()) if mask5.any() else 0.0
+    log(f"  phys_check=make_unsupcol_check(...): {int(mask5.sum())} of {len(grid5)} poses "
+        f"passed pre-render checks; card vs CPU masks: {n_diff5} differences (ties, least "
+        f"|sample - 0.5| at most {gap5:.1e}); fused_score {info_p['stage_s']['fused_score']:.2f} "
+        f"s, phys_check {info_p['stage_s']['phys_check']:.2f} s, the whole call {wall_p:.2f} s; "
+        f"raw scores at the valid poses against the unmasked run's: "
+        + ("bit-identical" if same5 else f"max |difference| {gap_s:.3e} (phase 4's logit gap "
+           f"{d_logit:.3e})"))
+    if len(seen5) != 1 or not 0 < mask5.sum() < len(grid5) or np.any(raw_p[~mask5] != 0):
+        raise AssertionError("grid scorer with physics: the mask or the scores are off")
+    if not same5 and gap_s > d_logit:
+        raise AssertionError(f"grid scorer with physics: scores at the valid poses move by "
+                             f"{gap_s} (phase 4's logit gap {d_logit})")
     shutil.rmtree(out_dir, ignore_errors=True)
 
     # ------------------------------------------------------------ results

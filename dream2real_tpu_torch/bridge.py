@@ -1,7 +1,8 @@
 """Weight bridge between the reference's parameter pytrees (as numpy arrays)
 and the port's modules, so both packages run the same parameters: JAX
 pytrees into the port, and a port field or CLIP model back out
-(``field_to_numpy``, ``clip_to_numpy``).
+(``field_to_numpy``, ``clip_to_numpy``). The reference's physics state goes
+across the same way (``phys_model_from_arrays``).
 
 NGP keys: trunk_w0..4, trunk_b0..4, color_w0..2 (f32, (in, out)).
 CLIP keys: v_*, t_*, v_blk{i} / t_blk{i} with ln1_g/b, ln2_g/b and
@@ -22,6 +23,8 @@ from dream2real_tpu_torch.device import resolve_device
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField
 from dream2real_tpu_torch.nerf.render import RenderSettings
 from dream2real_tpu_torch.nerf.snapshot import load_snapshot, settings_from_extra
+from dream2real_tpu_torch.physics.models import PhysModel
+from dream2real_tpu_torch.physics.tsdf import TSDFGrid
 
 
 def _copy(dst: torch.nn.Parameter, src, key: str) -> None:
@@ -90,3 +93,19 @@ def field_from_snapshot(path: str, device=None) -> tuple[NGPField, RenderSetting
     RenderSettings its training run persisted (None if absent)."""
     params, cfg, extra = load_snapshot(path)
     return field_from_jax(params, cfg, device), settings_from_extra(extra)
+
+
+def phys_model_from_arrays(tsdf, weight, origin, voxel_size, points, mesh_path=None,
+                           device=None) -> PhysModel:
+    """The reference's physics state as numpy arrays (a TSDFGrid's tsdf,
+    weight, origin and voxel_size, and the (M, 4) collision points) -> the
+    port's PhysModel with its grid on ``device`` (CUDA unless named)."""
+    dev = resolve_device(device)
+    grid = TSDFGrid(
+        tsdf=torch.as_tensor(np.asarray(tsdf, np.float32), device=dev),
+        weight=torch.as_tensor(np.asarray(weight, np.float32), device=dev),
+        origin=torch.as_tensor(np.asarray(origin, np.float32), device=dev),
+        voxel_size=float(voxel_size),
+    )
+    pts = None if points is None else np.asarray(points, np.float32)
+    return PhysModel(mesh_path, grid, pts)

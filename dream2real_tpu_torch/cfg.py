@@ -1,4 +1,5 @@
-"""Config system (numpy-only copy of dream2real_tpu/cfg.py's ``Config``):
+"""Config system (numpy-only copy of dream2real_tpu/cfg.py's ``Config`` and
+``validate_cache_flags``):
 flat JSON -> attribute object, with the reference's schema (sections
 ``dataset`` / ``engine`` / ``trainer`` / ``render`` / ``camera`` / ``vis`` /
 ``robot``), so the repo's configs and cached artifact directories work
@@ -166,3 +167,18 @@ class Config:
 
     def get(self, key: str, default: Any = None) -> Any:
         return getattr(self, key, default)
+
+
+def validate_cache_flags(cfg: Config) -> None:
+    """Cache-flag consistency checks (reference demo.py:27-29): cached
+    physics or visual models need the cached camera poses they were built
+    from, and cached captions need the cached segmentations."""
+    if (not cfg.use_cache_cam_poses) and cfg.use_cache_phys:
+        raise AssertionError("Cannot use new camera poses with old cached physics models. "
+                             "Disable use_cache_phys.")
+    if (not cfg.use_cache_cam_poses) and cfg.use_cache_vis:
+        raise AssertionError("Cannot use new camera poses with old cached visual models. "
+                             "Disable use_cache_vis.")
+    if (not cfg.use_cache_segs) and cfg.use_cache_captions:
+        raise AssertionError("Cannot use new segmentations with old cached captions. "
+                             "Disable use_cache_captions.")

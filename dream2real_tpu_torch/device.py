@@ -10,6 +10,7 @@ are taken in f32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 BF16 = torch.bfloat16
@@ -25,6 +26,11 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (any device) or array-like -> a host numpy array."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,8 @@ same results) on CPU tensors:
   forward pass, ``dL/da_s = m T g - (G_total - P_s) / (1 - a_s + eps)``; the
   13 weight gradients, and origin/dir gradients of the geometric path only
   when asked (``d ts = 0``; the ``|d|``, SH and ts paths are dropped on
-  purpose, see PERF.md "Extrinsics gradients policy").
+  purpose: CLAUDE.md's extrinsics note and
+  experiments/results/extr_grad_ab.json).
 - ``density_weights`` (K8): forward-only coarse composite weights (R, S).
 
 ``render_train_fused`` ties K6 and K7 into one ``torch.autograd.Function``

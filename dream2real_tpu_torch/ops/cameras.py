@@ -1,6 +1,7 @@
 """Camera models (port of dream2real_tpu/ops/cameras.py): intrinsics
-constants, per-pixel ray directions with Brown-Conrady undistortion, world
-rays of a pose and point projection."""
+constants, Brown-Conrady coefficients and the forward lens model, per-pixel
+ray directions with undistortion, world rays of a pose and point
+projection."""
 
 from __future__ import annotations
 
@@ -17,6 +18,30 @@ INTRINSICS_CLIP_VIEW = np.array(
         [0.0, 0.0, 1.0],
     ]
 )
+
+
+def normalize_distortion(distortion):
+    """None for absent or all-zero coefficient arrays, so that pinhole code
+    paths stay numerically identical when a config carries k1..p2 = 0 (every
+    synth config does); else the coefficients as f32 numpy."""
+    if distortion is None:
+        return None
+    d = np.asarray(distortion, np.float32)
+    if not np.any(d):
+        return None
+    return d
+
+
+def distort_coords(x, y, distortion):
+    """Forward Brown-Conrady: normalized pinhole coords -> distorted coords
+    (the model whose inverse ``pixel_dirs`` iterates; coefficient order k1,
+    k2, p1, p2, k3, k4). x, y: tensors; distortion: indexable by 0..5."""
+    k1, k2, p1, p2, k3, _k4 = [distortion[i] for i in range(6)]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return xd, yd
 
 
 def pixel_dirs(

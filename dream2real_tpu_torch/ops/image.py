@@ -1,12 +1,55 @@
-"""Image ops (port of the parts of dream2real_tpu/ops/image.py on the
-imagine-and-score and training paths): center crop, cv2-exact cubic resize,
-depth / mask rectification to the CLIP view, torchvision-exact gaussian blur,
-linear <-> sRGB."""
+"""Image ops (port of dream2real_tpu/ops/image.py): erosion and dilation with
+a square all-ones kernel, center crop, cv2-exact cubic resize, depth / mask
+rectification to the CLIP view, torchvision-exact gaussian blur, linear <->
+sRGB."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _window_extreme(x: torch.Tensor, k: int, take_min: bool) -> torch.Tensor:
+    """Min (max) of x over a k x k window of its last two axes, placed as
+    ``lax.reduce_window(..., "SAME")`` places it: (k - 1) // 2 before and
+    k // 2 after each pixel (cv2 anchors at k // 2: the two sit one pixel
+    apart for even k). Outside the image the window sees the identity of the
+    reduction (+-inf, the integer dtype's max / min, True / False)."""
+    if x.dtype == torch.bool:
+        fill, op = take_min, (torch.logical_and if take_min else torch.logical_or)
+    elif x.dtype.is_floating_point:
+        fill, op = (float("inf") if take_min else float("-inf")), (
+            torch.minimum if take_min else torch.maximum)
+    else:
+        info = torch.iinfo(x.dtype)
+        fill, op = (info.max if take_min else info.min), (
+            torch.minimum if take_min else torch.maximum)
+    lo, hi = (k - 1) // 2, k // 2
+    for axis in (-2, -1):
+        n = x.shape[axis]
+        pad_shape = list(x.shape)
+        pad_shape[axis] = lo
+        before = torch.full(pad_shape, fill, dtype=x.dtype, device=x.device)
+        pad_shape[axis] = hi
+        after = torch.full(pad_shape, fill, dtype=x.dtype, device=x.device)
+        xp = torch.cat([before, x, after], dim=axis)
+        out = xp.narrow(axis, 0, n)
+        for i in range(1, k):
+            out = op(out, xp.narrow(axis, i, n))
+        x = out
+    return x
+
+
+def erode(mask: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Erosion with an all-ones square kernel over the last two axes of a
+    (..., H, W) float, integer or bool tensor (the JAX package's erode)."""
+    return _window_extreme(mask, kernel_size, take_min=True)
+
+
+def dilate(mask: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Dilation with an all-ones square kernel over the last two axes of a
+    (..., H, W) float, integer or bool tensor (the JAX package's dilate)."""
+    return _window_extreme(mask, kernel_size, take_min=False)
 
 
 def center_crop_square(img: torch.Tensor) -> torch.Tensor:
