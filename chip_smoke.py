@@ -99,6 +99,26 @@ Phases (any failure raises; the exit code is then nonzero):
                 with phys_check=make_unsupcol_check(...) built from phase
                 P's models: the pass count, the mask against the CPU path's,
                 the valid poses' raw scores against the unmasked run's
+  E engine      the whole demo from scan to goal pose. E1: the port's writer
+                writes the README's scan (synth scene, 24 views, 180 x 320);
+                every images/, depth/ and masks/ file decodes bit for bit to
+                what was rendered; the decoder's seconds per frame, also on
+                Paeth-filtered files at 180 x 320 and 720 x 1280. E2:
+                cli/demo.py's main on configs/synth_demo.json, "put the red
+                box on the green box": the LLM answered from the port's
+                cache copy (no backend), phase 3's full-size random
+                ViT-L/14-336 as the CLIP, physics on, the configs' step
+                counts halved (the full-scene field 1000, the task fields
+                8000, the governor capped there); each stage's seconds, each
+                field's steps, the poses scored and the valid count; the
+                artifact set, the goal pose scored and physics-valid, the
+                card's validity mask against the CPU path's, K1, K2, K4, K5,
+                K6 and K7 launched (K3 only beneath K2, K8 not), the fields
+                and the tower on the card, and a replay from the caches
+                (dynamic masks, segs, camera poses, physics, fields) with
+                the same goal pose to 1e-5. E3: the synth argmax oracle
+                (experiments/validate_synth_argmax.py, xyz mode) on E2's
+                directory: its four gates
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
 
@@ -477,6 +497,209 @@ def physics_phase(dev, smi, depths=None, views=36, res=336) -> dict:
     physics_oracle.check_agreement(out4, min_n=100)
     log(f"  phase P took {time.perf_counter() - t_p:.1f} s of wall")
     return {"bg": bg, "fg": fg, "init": inits[1]}
+
+
+# The README's scan and the demo's run (phase E).
+ENGINE_VIEWS, ENGINE_H, ENGINE_W = 24, 180, 320
+ENGINE_INSTR = "put the red box on the green box"
+# The fields' steps in phase E: the configs' counts halved
+# (D2R_TRAIN_STEPS_SCALE: the full-scene field 1000, the task fields 8000,
+# the count 37 of the 45 trainer blocks under configs/ give), and the
+# convergence governor capped at 8000, so that the task fields stop there.
+# At 2000 (the governor took them to 4400 and 3500) the fg field keeps a
+# halo of fog and E3's identity-move PSNR is 16.8 dB; at 8000, 29.05 dB (one
+# H100 80GB HBM3 at 700 W).
+ENGINE_STEPS_SCALE = "0.5"
+ENGINE_TRAIN = {"max_infinity_steps": 8000}
+# The JAX package's record of the oracle check, xyz mode, on a TPU
+# (experiments/results/validate_synth_argmax_xyz.json): a quality record.
+ORACLE_RECORD = {"psnr_db": 28.35, "argmax_idx": [15, 16, 1, 0, 0, 0], "rank_corr_top": 0.985}
+
+
+def engine_phase(dev, smi, clip, clip_cfg, counters) -> dict:
+    """Phase E: the scan written and decoded (E1), the demo from scan to goal
+    pose and its cache replay (E2), the synth argmax oracle on E2's
+    directory (E3). ``counters``: {name: wrapper} of the launch counters.
+    -> {name: launches in E2's run}."""
+    from dream2real_tpu_torch import reconstruction, scoring
+    from dream2real_tpu_torch.cli import demo
+    from dream2real_tpu_torch.data import synth
+    from dream2real_tpu_torch.experiments import validate_synth_argmax as vsa
+    from dream2real_tpu_torch.physics.collision import make_unsupcol_check
+    from dream2real_tpu_torch.utils import png
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_engine")
+    shutil.rmtree(root, ignore_errors=True)
+    scan, out = os.path.join(root, "scan"), os.path.join(root, "out")
+    cfg_path = os.path.join(vsa.CONFIGS, "synth_demo.json")
+
+    # ---- E1: the scan, written by the port and decoded bit for bit.
+    t0 = time.perf_counter()
+    meta = synth.write_dataset(scan, n_views=ENGINE_VIEWS, h=ENGINE_H, w=ENGINE_W)
+    t_write = time.perf_counter() - t0
+    K = np.asarray(meta["intrinsics"])
+    poses = synth.orbit_poses(synth.default_scene().centre, ENGINE_VIEWS)
+    want = [synth.render_scene(synth.default_scene(), p, K, ENGINE_H, ENGINE_W) for p in poses]
+    dec_s = {}
+    for sub, prefix, k in (("images", "rgb", 0), ("depth", "depth", 1), ("masks", "mask", 2)):
+        paths = [os.path.join(scan, sub, f"{prefix}_{i:04d}.png") for i in range(ENGINE_VIEWS)]
+        t0 = time.perf_counter()
+        got = png.read_pngs(paths)
+        dec_s[sub] = (time.perf_counter() - t0) / ENGINE_VIEWS
+        ref = np.stack([w[k] for w in want])
+        if k == 1:
+            ref = np.clip(ref * 1000.0, 0, 65535).astype(np.uint16)
+        if got.dtype != ref.dtype or not np.array_equal(got, ref):
+            raise AssertionError(f"E1: {sub}/ does not decode to what was written")
+    # Paeth rows, the slowest filter to undo (PIL writes it on most rows).
+    rgb = np.stack([w[0] for w in want])
+    big = np.ascontiguousarray(np.tile(rgb[:8], (1, 4, 4, 1)))  # 720 x 1280
+    paeth_s = {}
+    for tag, imgs in (("180x320", rgb), ("720x1280", big)):
+        blobs = [png.encode_png(im, filter_type=4) for im in imgs]
+        t0 = time.perf_counter()
+        got = png.decode_pngs(blobs)
+        paeth_s[tag] = (time.perf_counter() - t0) / len(imgs)
+        if not np.array_equal(got, imgs):
+            raise AssertionError(f"E1: Paeth-filtered {tag} frames do not decode bit for bit")
+    log(f"  E1: wrote {ENGINE_VIEWS} views of {ENGINE_H} x {ENGINE_W} in {t_write:.2f} s; "
+        f"every images/, depth/ and masks/ file decodes bit for bit; decode seconds a frame "
+        f"(filter 0, as the port writes): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in dec_s.items())
+        + f"; Paeth rows: 180 x 320 RGB {paeth_s['180x320']:.4f}, 720 x 1280 RGB "
+        f"{paeth_s['720x1280']:.4f} (host, {os.cpu_count()} cores)")
+
+    # ---- E2: the demo, from the scan to the goal pose.
+    argv = [scan, out, cfg_path, ENGINE_INSTR, "--device", str(dev)]
+    kw = dict(clip_loader=lambda: (clip, clip_cfg), ngp_overrides={"train": ENGINE_TRAIN})
+    # No transformers files: the engine's tokenizer hashes, as phase 3's.
+    os.environ["D2R_CLIP_PATH"] = os.path.join(root, "no_clip_checkpoint")
+    os.environ["D2R_TRAIN_STEPS_SCALE"] = ENGINE_STEPS_SCALE
+    cwd = os.getcwd()
+    os.chdir(root)  # result.txt goes to the working directory
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        reconstruction.TRAIN_LOG.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, task, goal = demo.main(argv, **kw)
+        torch.cuda.synchronize()
+        t_demo = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        fields = list(reconstruction.TRAIN_LOG)
+        with open("result.txt") as f:
+            result = f.read()
+    finally:
+        os.chdir(cwd)
+    info = dict(scoring.LAST_RUN_INFO)
+    stages = eng.stage_timer.stages
+    batch = np.loadtxt(os.path.join(out, "pose_batch.txt"))
+    scores = np.loadtxt(os.path.join(out, "pose_scores.txt"))
+    n_valid = int(np.count_nonzero(info["raw_scores"]))
+    log(f"  E2: scan to goal pose {t_demo:.2f} s ({smi}); stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+        + "; fields: " + ", ".join(f"{f['files']} {f['steps']} steps (loss "
+                                    f"{f['final_loss']:.5f})" for f in fields)
+        + f"; {len(batch)} poses, {n_valid} physics-valid and scored "
+        f"(fused_score {info['stage_s'].get('fused_score', float('nan')):.2f} s); "
+        f"launches {launches}")
+    log(f"  E2: goal pose {np.round(goal[:3, 3], 4).tolist()}; result.txt "
+        f"{result.splitlines()[:3]}")
+    for artifact in (
+        "goal_pose.txt", "pose_batch.txt", "pose_scores.txt", "best_render.png",
+        "opt_cam_poses.npy", "full_base.ingp", "fg_base.ingp", "bg_base.ingp",
+        "fg_transforms.json", "bg_transforms.json", "phys_mod/mesh_concave_0.obj",
+        "phys_mod/init_pose_1.txt", "cb_render/cb_rgb_0000.png",
+        "images/dynamic_mask_rgb_0000.png", "XMem_masks/rgb_0000.png",
+    ):
+        if not os.path.exists(os.path.join(out, artifact)):
+            raise AssertionError(f"E2: {artifact} was not written")
+    if not (result.startswith(f"user_instr: {ENGINE_INSTR}\n") and "goal_pose:" in result):
+        raise AssertionError(f"E2: result.txt reads {result!r}")
+    if ([f["files"] for f in fields] != ["transforms.json", "fg_transforms.json",
+                                         "bg_transforms.json"]
+            or fields[0]["steps"] != 1000
+            or not all(0 < f["steps"] <= ENGINE_TRAIN["max_infinity_steps"] for f in fields)):
+        raise AssertionError(f"E2: trained {fields}")
+    # The goal pose: a grid pose, scored, and valid on the card as on the CPU.
+    hit = np.flatnonzero(np.all(np.isclose(batch, goal.reshape(1, 16), atol=1e-6), axis=1))
+    bg_phys, fg_phys = eng.static_phys_handles[0], eng.movable_phys_handle
+    init = np.asarray(task.movable_obj.pose)
+    check = make_unsupcol_check(bg_phys.tsdf, fg_phys.points, init, eng.scene_centre,
+                                eng.sample_res, device=dev)
+    mask = check(batch).cpu().numpy()
+    cpu_check = make_unsupcol_check(bg_phys.tsdf.to("cpu"), fg_phys.points, init,
+                                    eng.scene_centre, eng.sample_res, device="cpu")
+    n_diff, gap = masks_against_cpu(cpu_check, batch, mask)
+    log(f"  E2: goal pose is grid pose {hit.tolist()}; {int(mask.sum())} valid poses on the "
+        f"card, card vs CPU masks: {n_diff} differences (least |sample - 0.5| at most "
+        f"{gap:.1e})")
+    if len(hit) != 1 or scores[hit[0]] == 0 or not mask[hit[0]]:
+        raise AssertionError("E2: the goal pose is not a scored, physics-valid grid pose")
+    if int(mask.sum()) != n_valid or np.any(info["raw_scores"][~mask] != 0):
+        raise AssertionError("E2: the scored poses are not the physics-valid ones")
+    for key in ("march (K1)", "ln_qkv_attention (K2)", "attention_causal (K4)",
+                "density_sample (K5)", "train_fwd (K6)", "train_bwd (K7)"):
+        if launches[key] == 0:
+            raise AssertionError(f"E2: {key} was not launched")
+    if (launches["attention_qkv (K3)"] != launches["ln_qkv_attention (K2)"]
+            or launches["density_weights (K8)"] != 0):
+        raise AssertionError(f"E2: K3 outside K2 or K8 launched: {launches}")
+    if launches["train_fwd (K6)"] != sum(f["steps"] for f in fields):
+        raise AssertionError("E2: K6 launches are not the fields' steps")
+    # The renderer holds the task fields (the task model drops the bg
+    # field's handle once scoring is done, as the reference does).
+    tensors = {"fg field": eng.renderer.fg, "bg field": eng.renderer.bg,
+               "full-scene field": eng._full_model.field, "CLIP": eng._clip_scorer.params}
+    for what, module in tensors.items():
+        devs = {p.device.type for p in module.parameters()}
+        if devs != {dev.type}:
+            raise AssertionError(f"E2: the {what}'s parameters are on {devs}")
+
+    # The replay: every cache flag of a finished run, the goal pose scored
+    # again from the cached fields.
+    with open(cfg_path) as f:
+        raw = json.load(f)
+    raw["engine"].update({flag: True for flag in (
+        "use_cache_dynamic_masks", "use_cache_segs", "use_cache_cam_poses", "use_cache_phys",
+        "use_cache_vis")})
+    cached_cfg = os.path.join(root, "synth_demo_cached.json")
+    with open(cached_cfg, "w") as f:
+        json.dump(raw, f)
+    os.chdir(root)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eng2, _, goal2 = demo.main([scan, out, cached_cfg] + argv[3:], **kw)
+        torch.cuda.synchronize()
+        t_replay = time.perf_counter() - t0
+        replay_launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        os.chdir(cwd)
+    gap2 = float(np.abs(np.loadtxt(os.path.join(out, "goal_pose.txt")) - goal).max())
+    log(f"  E2 replay from the caches: {t_replay:.2f} s, stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in eng2.stage_timer.stages.items())
+        + f"; goal pose max |difference| {gap2:.1e}; training launches "
+        f"{replay_launches['train_fwd (K6)']}")
+    if gap2 > 1e-5 or replay_launches["train_fwd (K6)"] != 0:
+        raise AssertionError(f"E2 replay: the goal pose moves by {gap2} or a field trained")
+
+    # ---- E3: the argmax oracle on E2's directory (its cached fields).
+    t0 = time.perf_counter()
+    res = vsa.main([out, "--device", str(dev)], clip_loader=kw["clip_loader"])
+    t_oracle = time.perf_counter() - t0
+    log(f"  E3: validate_synth_argmax (xyz) in {t_oracle:.2f} s: PSNR {res['psnr_db']} dB, "
+        f"argmax {res['argmax_idx']}, oracle {res['oracle_idx']}, smoothed argmax t2 "
+        f"{res['smoothed_argmax_t2']}, rank corr {res['rank_corr_top']} (smoothed "
+        f"{res['rank_corr_smoothed_top']}); the JAX package's TPU record (quality, not speed): "
+        f"{ORACLE_RECORD}")
+    if not res["ok"]:
+        raise AssertionError(f"E3: the oracle's gates failed: {res}")
+    del os.environ["D2R_CLIP_PATH"], os.environ["D2R_TRAIN_STEPS_SCALE"]
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -1863,6 +2086,10 @@ def main() -> int:
         raise AssertionError(f"grid scorer with physics: scores at the valid poses move by "
                              f"{gap_s} (phase 4's logit gap {d_logit})")
     shutil.rmtree(out_dir, ignore_errors=True)
+
+    # ------------------------------------------------------------ E engine
+    phase("E engine (the scan, the demo from scan to goal pose, the argmax oracle)")
+    engine_phase(dev, smi, clip, clip_cfg, {**wrappers, **train_fns})
 
     # ------------------------------------------------------------ results
     log(smi)

@@ -195,10 +195,10 @@ def main(argv=None) -> int:
     if args.out:
         import os
 
-        from PIL import Image
+        from dream2real_tpu_torch.utils.png import write_png
 
         os.makedirs(args.out, exist_ok=True)
-        Image.fromarray(res["image"]).save(os.path.join(args.out, "render.png"))
+        write_png(os.path.join(args.out, "render.png"), res["image"])
     print("SELFTEST", "PASS" if res["ok"] else "FAIL", flush=True)
     return 0 if res["ok"] else 1
 

@@ -104,3 +104,38 @@ def project_points(points_w: torch.Tensor, T_CW: torch.Tensor, intrinsics: torch
     u = cam[..., 0] / zc * intrinsics[0, 0] + intrinsics[0, 2]
     v = cam[..., 1] / zc * intrinsics[1, 1] + intrinsics[1, 2]
     return torch.stack([u, v], dim=-1), z
+
+
+def pix_to_world(row, col, img_height: int, depth, cam_pose, intrinsics) -> torch.Tensor:
+    """Pixel + depth -> world point, f32, with the reference's u = height -
+    row convention (vision_3d/geometry_utils.py:127-135). Runs on the device
+    of ``cam_pose`` when it is a tensor, else on the CPU."""
+    dev = cam_pose.device if torch.is_tensor(cam_pose) else torch.device("cpu")
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    u = t(img_height) - t(row)
+    v = t(col)
+    K_inv = torch.linalg.inv(t(intrinsics))
+    cam = K_inv @ (t(depth) * torch.stack([u, v, torch.ones_like(u)]))
+    world = t(cam_pose) @ torch.cat([cam, torch.ones_like(cam[:1])])
+    return (world / world[3])[:3]
+
+
+def clip_view_intrinsics_like(intrinsics: np.ndarray, src_hw: tuple[int, int],
+                              res: int = 336) -> np.ndarray:
+    """CLIP-view intrinsics of a source camera: center-crop to a square, then
+    resize to res (how INTRINSICS_CLIP_VIEW relates to the reference's
+    1280 x 720 RealSense intrinsics). Host numpy, f64."""
+    h, w = src_hw
+    side = min(h, w)
+    scale = res / side
+    crop_x = (w - side) / 2
+    crop_y = (h - side) / 2
+    out = intrinsics.copy().astype(np.float64)
+    out[0, 0] *= scale
+    out[1, 1] *= scale
+    out[0, 2] = (intrinsics[0, 2] - crop_x) * scale
+    out[1, 2] = (intrinsics[1, 2] - crop_y) * scale
+    return out

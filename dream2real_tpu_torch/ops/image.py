@@ -9,12 +9,14 @@ import numpy as np
 import torch
 
 
-def _window_extreme(x: torch.Tensor, k: int, take_min: bool) -> torch.Tensor:
+def _window_extreme(x: torch.Tensor, k: int, take_min: bool,
+                    cv2_anchor: bool = False) -> torch.Tensor:
     """Min (max) of x over a k x k window of its last two axes, placed as
     ``lax.reduce_window(..., "SAME")`` places it: (k - 1) // 2 before and
-    k // 2 after each pixel (cv2 anchors at k // 2: the two sit one pixel
-    apart for even k). Outside the image the window sees the identity of the
-    reduction (+-inf, the integer dtype's max / min, True / False)."""
+    k // 2 after each pixel, or with ``cv2_anchor`` as cv2 anchors it, k // 2
+    before (the two sit one pixel apart for even k). Outside the image the
+    window sees the identity of the reduction (+-inf, the integer dtype's
+    max / min, True / False)."""
     if x.dtype == torch.bool:
         fill, op = take_min, (torch.logical_and if take_min else torch.logical_or)
     elif x.dtype.is_floating_point:
@@ -25,6 +27,8 @@ def _window_extreme(x: torch.Tensor, k: int, take_min: bool) -> torch.Tensor:
         fill, op = (info.max if take_min else info.min), (
             torch.minimum if take_min else torch.maximum)
     lo, hi = (k - 1) // 2, k // 2
+    if cv2_anchor:
+        lo, hi = hi, lo
     for axis in (-2, -1):
         n = x.shape[axis]
         pad_shape = list(x.shape)
@@ -40,16 +44,18 @@ def _window_extreme(x: torch.Tensor, k: int, take_min: bool) -> torch.Tensor:
     return x
 
 
-def erode(mask: torch.Tensor, kernel_size: int) -> torch.Tensor:
+def erode(mask: torch.Tensor, kernel_size: int, cv2_anchor: bool = False) -> torch.Tensor:
     """Erosion with an all-ones square kernel over the last two axes of a
-    (..., H, W) float, integer or bool tensor (the JAX package's erode)."""
-    return _window_extreme(mask, kernel_size, take_min=True)
+    (..., H, W) float, integer or bool tensor (the JAX package's erode;
+    cv2.erode's placement with ``cv2_anchor``)."""
+    return _window_extreme(mask, kernel_size, take_min=True, cv2_anchor=cv2_anchor)
 
 
-def dilate(mask: torch.Tensor, kernel_size: int) -> torch.Tensor:
+def dilate(mask: torch.Tensor, kernel_size: int, cv2_anchor: bool = False) -> torch.Tensor:
     """Dilation with an all-ones square kernel over the last two axes of a
-    (..., H, W) float, integer or bool tensor (the JAX package's dilate)."""
-    return _window_extreme(mask, kernel_size, take_min=False)
+    (..., H, W) float, integer or bool tensor (the JAX package's dilate;
+    cv2.dilate's placement with ``cv2_anchor``)."""
+    return _window_extreme(mask, kernel_size, take_min=False, cv2_anchor=cv2_anchor)
 
 
 def center_crop_square(img: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,8 @@ dataset IO and training orchestration on one device.
 - ``get_vis_ngps``: masked RGBA images (mask as alpha) -> fg / task-bg field.
 
 ``NGPModel`` bundles (field, NGPConfig, RenderSettings), the handle the
-engine and renderer pass around. PIL is imported only by the functions that
-read or write image files.
+engine and renderer pass around. Image files go through the port's PNG
+codec (``utils/png.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +34,13 @@ from dream2real_tpu_torch.nerf.trainer import (
     TrainConfig, init_train_state, make_train_chunk, optimized_poses, train_with_governor,
 )
 from dream2real_tpu_torch.ops import cameras
+from dream2real_tpu_torch.utils.png import read_pngs, to_rgb, write_png
+
+
+#: One entry a build_vis_model call, appended when its training ends: the
+#: transforms file it read, the steps the convergence governor ran and the
+#: final loss.
+TRAIN_LOG: list = []
 
 
 @dataclasses.dataclass
@@ -96,25 +103,24 @@ def raw_poses_convert(cfg, out_path: str):
 def load_transforms_dataset(transforms_path: str, data_dir: str):
     """Read a transforms.json: images (RGBA uint8), accio poses, intrinsics,
     distortion. The frames' NGP-convention matrices are flipped back to accio."""
-    from PIL import Image
-
     with open(transforms_path) as f:
         meta = json.load(f)
     K = np.array([[meta["fl_x"], 0, meta["cx"]], [0, meta["fl_y"], meta["cy"]], [0, 0, 1.0]])
     dist = None
     if any(meta.get(k) for k in ("k1", "k2", "p1", "p2", "k3", "k4")):
         dist = np.array([meta.get(k, 0.0) for k in ("k1", "k2", "p1", "p2", "k3", "k4")])
-    imgs, poses = [], []
+    imgs = read_pngs([os.path.join(data_dir, fr["file_path"].lstrip("./"))
+                      for fr in meta["frames"]])
+    if imgs.shape[-1] != 4:
+        rgb = np.stack([to_rgb(im) for im in imgs])
+        imgs = np.concatenate([rgb, np.full(rgb.shape[:3] + (1,), 255, np.uint8)], axis=-1)
+    poses = []
     for fr in meta["frames"]:
-        img = np.asarray(Image.open(os.path.join(data_dir, fr["file_path"].lstrip("./"))))
-        if img.shape[-1] == 3:
-            img = np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=-1)
-        imgs.append(img)
         m = np.asarray(fr["transform_matrix"], np.float32)
         m[:3, 1] *= -1  # NGP -> accio
         m[:3, 2] *= -1
         poses.append(m)
-    return np.stack(imgs), np.stack(poses), K, dist
+    return imgs, np.stack(poses), K, dist
 
 
 def _aabb_from_cfg(cfg, poses: Optional[np.ndarray], pad: float = 0.15):
@@ -215,6 +221,8 @@ def build_vis_model(
         fg_pixels=fg_pixels,
     )
     state, losses = train_with_governor(chunk, state, tc, log_fn=log_fn)
+    TRAIN_LOG.append({"files": os.path.basename(transforms_path), "steps": int(state["step"]),
+                      "final_loss": losses[-1]})
 
     opt_cam_poses = None
     if cfg.optimize_extrinsics:
@@ -310,8 +318,6 @@ def get_vis_ngps(
     to make transparent (the mask as inverted alpha). Cold start by default:
     the MLP field fine-tunes worse from the full-scene snapshot than it
     trains from scratch."""
-    from PIL import Image
-
     from dream2real_tpu_torch.cfg import Config
 
     snap = os.path.join(data_dir, "fg_base.ingp" if fg else "bg_base.ingp")
@@ -326,7 +332,7 @@ def get_vis_ngps(
     alphas = (1 - np.asarray(movable_masks).astype(np.uint8)) * 255
     rgba = np.concatenate([rgbs, alphas[..., None]], axis=-1).astype(np.uint8)
     for i in range(rgba.shape[0]):
-        Image.fromarray(rgba[i]).save(os.path.join(out_path, f"rgb_{i:04d}.png"))
+        write_png(os.path.join(out_path, f"rgb_{i:04d}.png"), rgba[i])
 
     cfg_dir = cfg_dir or os.path.join(os.path.dirname(__file__), "..", "configs")
     cfg = Config(os.path.join(cfg_dir, f"{tag}_scene.json"), data_dir)

@@ -32,7 +32,7 @@ from dream2real_tpu_torch.device import F32
 from dream2real_tpu_torch.parallel.imagine import make_imagine_and_score
 from dream2real_tpu_torch.sampling import get_virtual_cam_poses, sample_poses_grid
 from dream2real_tpu_torch.smoothing import spatially_smooth_heatmap
-from dream2real_tpu_torch.utils.png import write_png
+from dream2real_tpu_torch.utils.png import read_png, to_rgb, write_png
 
 #: Observability: filled in by _fused_score with the dispatch decision of the
 #: most recent run ("n_poses", "mesh_devices", "slab", "clip_batch",
@@ -125,21 +125,25 @@ def _fused_score(
     LAST_RUN_INFO.clear()
     LAST_RUN_INFO.update(n_poses=k, mesh_devices=n_dev, slab=slab, clip_batch=cb)
 
-    # Reuse prefetched text embeddings and a built score function when they
-    # were made for exactly this renderer, scorer and caption set.
+    # Reuse prefetched text embeddings when they were made by this scorer
+    # for this caption set, and a built score function when it was made for
+    # exactly this renderer too.
     txt = score_fn = None
     if (
         prefetch is not None
-        and prefetch.get("score_fn") is not None
-        and prefetch.get("renderer") is renderer
+        and prefetch.get("txt") is not None
         and prefetch.get("clip_scorer") is clip_scorer
         and prefetch.get("captions") == captions
-        and prefetch.get("score_fn_key")
-        == (n_norm, use_templates, cb, save_dir is not None, n_dev)
     ):
         txt = prefetch["txt"]
-        score_fn = prefetch["score_fn"]
-        _lap("text embeddings + score_fn (prefetched)")
+        _lap("text embeddings (prefetched)")
+        if (
+            prefetch.get("score_fn") is not None
+            and prefetch.get("renderer") is renderer
+            and prefetch.get("score_fn_key")
+            == (n_norm, use_templates, cb, save_dir is not None, n_dev)
+        ):
+            score_fn = prefetch["score_fn"]
     if txt is None:
         txt = clip_scorer.text_embeddings(np.asarray(tokenizer(captions)))
         _lap("text embeddings")
@@ -314,14 +318,8 @@ def optimise_pose_grid(
         valid_idxs = np.nonzero(old_scores)[0]
         valid_poses = pose_batch[valid_idxs]
         render_dir = os.path.join(data_dir, "cb_render")
-        from PIL import Image
-
-        renders = np.stack(
-            [
-                np.asarray(Image.open(os.path.join(render_dir, f)).convert("RGB"))
-                for f in sorted(os.listdir(render_dir))
-            ]
-        )
+        renders = np.stack([to_rgb(read_png(os.path.join(render_dir, f)))
+                            for f in sorted(os.listdir(render_dir))])
         assert len(renders) == len(valid_poses), (
             f"Expected {len(valid_poses)} renders, got {len(renders)}. "
             "Try running without use_cache_renders."

@@ -309,12 +309,12 @@ def test_short_training_run_loss_falls(pallas_train, monkeypatch):
 
 
 def test_build_vis_model_snapshot_loads_in_jax(tmp_path, monkeypatch):
-    """build_vis_model on a tiny on-disk scan (the JAX package's synthetic
-    dataset writer) writes a snapshot, with its settings header, that the
-    JAX package loads, and the fg/bg pose exports."""
-    from dream2real_tpu.data.synth import write_dataset
+    """build_vis_model on a tiny on-disk scan (the port's synthetic dataset
+    writer) writes a snapshot, with its settings header, that the JAX
+    package loads, and the fg/bg pose exports."""
     from dream2real_tpu.reconstruction import NGPModel as JNGPModel
     from dream2real_tpu_torch.cfg import Config
+    from dream2real_tpu_torch.data.synth import write_dataset
     from dream2real_tpu_torch.reconstruction import build_vis_model
 
     data = str(tmp_path / "scan")
