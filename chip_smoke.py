@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU: train the NeRF field, build the
 physics models of its scan and check the configs' pose grids, imagine and
 score with the field, run the grid scorer on it (with and without the
-physics check), and run the attention bench.
+physics check), run the attention bench, the demo from scan to goal pose,
+the point-cloud ablation and the artifacts, and the hash-grid field.
 
     python3 chip_smoke.py            # needs one card
     python3 chip_smoke.py --profile  # also print torch.profiler tables of
@@ -119,6 +120,26 @@ Phases (any failure raises; the exit code is then nonzero):
                 the same goal pose to 1e-5. E3: the synth argmax oracle
                 (experiments/validate_synth_argmax.py, xyz mode) on E2's
                 directory: its four gates
+  V periphery   on phase E's scan. V1: cli/demo.py's main on
+                configs/synth/pcd.json (single_view_idx 10, see PCD_VIEW):
+                the point-cloud visual models and the device splat
+                (pcd/renderer.py) scored by phase 3's ViT-L/14-336, the
+                full-scene field's steps halved as in E2; each stage's
+                seconds, the goal pose physics-valid, K2, K4 and K5-K7
+                launched and K1 not; the splat's frames of the valid poses
+                against the plain per-pose loop on the host (every differing
+                pixel a shown tie) and both rates. V2: E2's directory
+                replayed from its caches with vis.gui: the goal pose equal
+                to E2's to 1e-5, cost_volume.png and multiverse.png decoded,
+                viewer.html's JSON parsed. V3: inpaint_telea on a 720 x 1280
+                frame with a band of holes, timed (host)
+  H hash grid   HashGridConfig()'s defaults (16 levels, F 2, 2^19 entries,
+                16-2048), hidden_dim 64: hash_encode on 2^20 points and its
+                table gradient, card against the CPU path (1e-6, cosine
+                0.99999); the field trained 1000 steps on phase T's scan
+                through the plain path (steps/s, held-out PSNR, the last 50
+                steps' loss under half the first 50's); one clip group with
+                the hash-grid field as the movable's, no K1 launch
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
 
@@ -133,6 +154,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from contextlib import ExitStack
 from unittest import mock
 
@@ -520,7 +542,9 @@ def engine_phase(dev, smi, clip, clip_cfg, counters) -> dict:
     """Phase E: the scan written and decoded (E1), the demo from scan to goal
     pose and its cache replay (E2), the synth argmax oracle on E2's
     directory (E3). ``counters``: {name: wrapper} of the launch counters.
-    -> {name: launches in E2's run}."""
+    -> {"launches": {name: launches in E2's run}, and what phase V reuses:
+    the directories, E2's goal pose, the engine's keyword arguments, the
+    scan's frames}; the caller removes ``root``."""
     from dream2real_tpu_torch import reconstruction, scoring
     from dream2real_tpu_torch.cli import demo
     from dream2real_tpu_torch.data import synth
@@ -698,8 +722,320 @@ def engine_phase(dev, smi, clip, clip_cfg, counters) -> dict:
     if not res["ok"]:
         raise AssertionError(f"E3: the oracle's gates failed: {res}")
     del os.environ["D2R_CLIP_PATH"], os.environ["D2R_TRAIN_STEPS_SCALE"]
-    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, root=root, scan=scan, out=out, goal=goal, kw=kw,
+                cfg_path=cfg_path, frames=rgb)
+
+
+# Phase V: the pcd ablation's config, the gui replay, the hole inpainting.
+PCD_CFG = os.path.join("configs", "synth", "pcd.json")
+# The ablation builds its physics (and its clouds) from one view of the scan
+# (the reference's physics_utils.py:64-65). On phase E's scan view 0, the
+# config's default, leaves no valid pose of the 800 (so the run stops before
+# scoring, in the JAX package too); view 10 leaves 79 (counted on the CPU
+# path, whose masks equal the card's). V1 sets single_view_idx to it.
+PCD_VIEW = 10
+# The device splat against the plain per-pose loop on this many of V1's
+# valid poses (the loop takes tens of ms a pose on the host); each pixel
+# that differs must be a tie (pcd/renderer.py::shown_ties).
+SPLAT_CHECK_POSES = 48
+# V3: the frame and its holes (a 12-row band and 0.2% of single pixels).
+TELEA_H, TELEA_W = 720, 1280
+
+
+def periphery_phase(dev, smi, counters, ctx) -> dict:
+    """Phase V on phase E's scan: V1 the pcd ablation from scan to goal pose
+    (cli/demo.py's main on configs/synth/pcd.json) and its device splat
+    against the plain per-pose loop, V2 a replay of E2's directory with
+    vis.gui (cost_volume.png, multiverse.png, viewer.html), V3 Telea's
+    inpainting of a 720 x 1280 frame. -> {name: launches in V1's run}."""
+    from dream2real_tpu_torch import reconstruction, scoring
+    from dream2real_tpu_torch.cli import demo
+    from dream2real_tpu_torch.pcd import renderer as pren
+    from dream2real_tpu_torch.pcd.visual_model import get_vis_pcds
+    from dream2real_tpu_torch.perception.imgproc import inpaint_telea
+    from dream2real_tpu_torch.physics.collision import make_unsupcol_check
+    from dream2real_tpu_torch.sampling import get_virtual_cam_poses
+    from dream2real_tpu_torch.utils import png
+
+    root, scan, kw = ctx["root"], ctx["scan"], ctx["kw"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.environ["D2R_CLIP_PATH"] = os.path.join(root, "no_clip_checkpoint")
+    os.environ["D2R_TRAIN_STEPS_SCALE"] = ENGINE_STEPS_SCALE
+    cwd = os.getcwd()
+
+    # ---- V1: the pcd ablation, from the scan to the goal pose.
+    out = os.path.join(root, "out_pcd")
+    with open(os.path.join(here, PCD_CFG)) as f:
+        raw_pcd = json.load(f)
+    raw_pcd["engine"]["single_view_idx"] = PCD_VIEW
+    pcd_cfg = os.path.join(root, "synth_pcd.json")
+    with open(pcd_cfg, "w") as f:
+        json.dump(raw_pcd, f)
+    os.chdir(root)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        reconstruction.TRAIN_LOG.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, task, goal = demo.main([scan, out, pcd_cfg, ENGINE_INSTR, "--device", str(dev)],
+                                    **kw)
+        torch.cuda.synchronize()
+        t_demo = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        fields = list(reconstruction.TRAIN_LOG)
+    finally:
+        os.chdir(cwd)
+    info = dict(scoring.LAST_RUN_INFO)
+    batch = np.loadtxt(os.path.join(out, "pose_batch.txt"))
+    raw = np.asarray(info["raw_scores"])
+    valid = np.flatnonzero(raw != 0)
+    log(f"  V1: pcd ablation scan to goal pose {t_demo:.2f} s ({smi}); stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in eng.stage_timer.stages.items())
+        + f"; fields {[(f['files'], f['steps']) for f in fields]}; {len(batch)} "
+        f"poses, {len(valid)} physics-valid and scored; launches {launches}")
+    if not isinstance(eng.renderer, pren.PointCloudRenderer):
+        raise AssertionError(f"V1: the renderer is {type(eng.renderer).__name__}")
+    if [f["files"] for f in fields] != ["transforms.json"]:
+        raise AssertionError(f"V1: trained {fields}")
+    for key in ("ln_qkv_attention (K2)", "attention_causal (K4)", "density_sample (K5)",
+                "train_fwd (K6)", "train_bwd (K7)"):
+        if launches[key] == 0:
+            raise AssertionError(f"V1: {key} was not launched")
+    if launches["march (K1)"] != 0:
+        raise AssertionError("V1: K1 launched on the pcd path (it has no fg field)")
+    for artifact in ("goal_pose.txt", "cost_volume.png", "multiverse.png",
+                     "movable_vis_mod/obj_vis_0.npz", "task_bground_vis_mod/obj_vis_0.npz"):
+        if not os.path.exists(os.path.join(out, artifact)):
+            raise AssertionError(f"V1: {artifact} was not written")
+    hit = np.flatnonzero(np.all(np.isclose(batch, goal.reshape(1, 16), atol=1e-6), axis=1))
+    init = np.asarray(task.movable_obj.pose)
+    check = make_unsupcol_check(eng.static_phys_handles[0].tsdf, eng.movable_phys_handle.points,
+                                init, eng.scene_centre, eng.sample_res, device=dev)
+    mask = check(batch).cpu().numpy()
+    if len(hit) != 1 or raw[hit[0]] == 0 or not mask[hit[0]] or not np.array_equal(
+            mask, raw != 0):
+        raise AssertionError("V1: the goal pose is not a scored, physics-valid grid pose, or "
+                             "the scored poses are not the physics-valid ones")
+    log(f"  V1: goal pose {np.round(goal[:3, 3], 4).tolist()} is grid pose {hit.tolist()}, "
+        f"physics-valid")
+
+    # The device splat against the plain per-pose loop, on the task's
+    # clouds (replayed from V1's caches) and the valid poses.
+    bg_pcd, = get_vis_pcds(None, None, None, None, None, 1, None,
+                           save_dir=os.path.join(out, "task_bground_vis_mod"))
+    mv_pcd, = get_vis_pcds(None, None, None, None, None, 1, None,
+                           save_dir=os.path.join(out, "movable_vis_mod"))
+
+    Task = types.SimpleNamespace(
+        task_bground_obj=types.SimpleNamespace(vis_model=bg_pcd),
+        movable_obj=types.SimpleNamespace(vis_model=mv_pcd, pose=init))
+
+    T_WC = np.asarray(get_virtual_cam_poses(eng.scene_model.opt_cam_poses,
+                                            eng.render_cam_pose_idx)[0], np.float64)
+    rend = pren.PointCloudRenderer(device=dev)
+    poses_all = batch.reshape(-1, 4, 4)
+    poses_v = poses_all[valid]
+    n_pts = len(bg_pcd.points) + len(mv_pcd.points)
+    rend.render(T_WC, poses_v[:8], Task)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = rend.render(T_WC, poses_v, Task)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rend.render(T_WC, poses_all, Task)  # the whole grid, valid or not
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    splat_peak = torch.cuda.max_memory_allocated(dev) - base
+    sub = poses_v[:SPLAT_CHECK_POSES]
+    t0 = time.perf_counter()
+    plain = rend.render_plain(T_WC, sub, Task)
+    t_plain = time.perf_counter() - t0
+    inv_old = np.linalg.inv(np.asarray(init, np.float64))
+    n_diff = n_tie = 0
+    bg_t = torch.as_tensor(bg_pcd.points, device=dev)
+    bgc_t = torch.as_tensor(bg_pcd.colors, device=dev)
+    mv_t = torch.as_tensor(mv_pcd.points, device=dev)
+    mvc_t = torch.as_tensor(mv_pcd.colors, device=dev)
+    for i, (g, w) in enumerate(zip(frames[:len(sub)], plain)):
+        if np.array_equal(g, w):
+            continue
+        tf = sub[i] @ inv_old
+        _, winner = pren.splat_batch(bg_t, bgc_t, mv_t, mvc_t, torch.as_tensor(tf[None],
+                                     device=dev), T_WC, rend.K, return_winner=True)
+        moved = mv_pcd.transformed(tf)
+        d, t = pren.shown_ties(g, w, winner[0].cpu().numpy(),
+                               np.concatenate([bg_pcd.points, moved.points]),
+                               np.concatenate([bg_pcd.colors, moved.colors]), T_WC, rend.K)
+        n_diff, n_tie = n_diff + d, n_tie + t
+    log(f"  V1: device splat {len(poses_v)} poses of {n_pts} points in {t_dev:.3f} s = "
+        f"{len(poses_v) / t_dev:.1f} poses/s, the whole grid's {len(poses_all)} in "
+        f"{t_all:.3f} s = {len(poses_all) / t_all:.1f} poses/s (chunk {rend._chunk(n_pts)}, "
+        f"frames copied to the host; peak device memory {splat_peak / 2**20:.1f} MiB of the "
+        f"{pren.CHUNK_BYTES['cuda'] / 2**20:.0f} MiB budget); the plain per-pose loop on the host "
+        f"{len(sub) / t_plain:.2f} poses/s "
+        f"({os.cpu_count()} cores); {len(sub)} frames against the plain loop: {n_diff} pixels "
+        f"differ, {n_tie} of them shown ties ({smi})")
+    if n_tie != n_diff:
+        raise AssertionError(f"V1: {n_diff - n_tie} differing splat pixels are not ties")
+    if splat_peak > pren.CHUNK_BYTES["cuda"]:
+        raise AssertionError(f"V1: the splat took {splat_peak} bytes, over its chunk budget")
+    if not all(f.shape == (336, 336, 3) and f.dtype == np.uint8 for f in frames):
+        raise AssertionError("V1: the splat's frames are not (336, 336, 3) u8")
+
+    # ---- V2: E2's directory replayed from its caches with vis.gui.
+    with open(ctx["cfg_path"]) as f:
+        raw_cfg = json.load(f)
+    raw_cfg["engine"].update({flag: True for flag in (
+        "use_cache_dynamic_masks", "use_cache_segs", "use_cache_cam_poses", "use_cache_phys",
+        "use_cache_vis")})
+    raw_cfg["vis"]["gui"] = True
+    gui_cfg = os.path.join(root, "synth_demo_gui.json")
+    with open(gui_cfg, "w") as f:
+        json.dump(raw_cfg, f)
+    e2 = ctx["out"]
+    for name_ in ("cost_volume.png", "multiverse.png", "viewer.html"):
+        if os.path.exists(os.path.join(e2, name_)):
+            os.remove(os.path.join(e2, name_))
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        eng2, _, goal2 = demo.main([scan, e2, gui_cfg, ENGINE_INSTR, "--device", str(dev)], **kw)
+        torch.cuda.synchronize()
+        t_gui = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    gap = float(np.abs(goal2 - ctx["goal"]).max())
+    shapes = {n_: png.read_png(os.path.join(e2, n_)).shape for n_ in ("cost_volume.png",
+                                                                    "multiverse.png")}
+    with open(os.path.join(e2, "viewer.html")) as f:
+        html = f.read()
+    data = json.loads(re.search(r"const DATA = (.*);\n", html).group(1))
+    t_art = eng2.stage_timer.stages.get("artifacts", 0.0)
+    log(f"  V2: gui replay {t_gui:.2f} s (artifacts {t_art:.2f} s); goal pose max |difference| "
+        f"from E2's {gap:.1e}; PNGs {shapes}; viewer.html {len(html)} bytes, layers "
+        f"{[(L['kind'], L['name']) for L in data['layers']]}")
+    if gap > 1e-5:
+        raise AssertionError(f"V2: the goal pose moves by {gap}")
+    if not any(L["name"] == "goal" for L in data["layers"]):
+        raise AssertionError("V2: viewer.html has no goal frame")
+
+    # ---- V3: Telea's inpainting of a 720 x 1280 frame (the host).
+    big = np.ascontiguousarray(np.tile(ctx["frames"][0], (4, 4, 1)))[:TELEA_H, :TELEA_W]
+    holes = np.zeros((TELEA_H, TELEA_W), np.uint8)
+    holes[TELEA_H // 2:TELEA_H // 2 + 12] = 1
+    holes[np.random.default_rng(SEED).random((TELEA_H, TELEA_W)) < 0.002] = 1
+    t0 = time.perf_counter()
+    filled = inpaint_telea(big, holes, 3)
+    t_telea = time.perf_counter() - t0
+    log(f"  V3: inpaint_telea on {TELEA_H} x {TELEA_W} with {int(holes.sum())} hole pixels: "
+        f"{t_telea:.2f} s ({int(holes.sum()) / t_telea:.0f} pixels/s, host, {os.cpu_count()} "
+        f"cores)")
+    if not np.array_equal(filled[holes == 0], big[holes == 0]):
+        raise AssertionError("V3: inpaint_telea changed a pixel outside the holes")
+    del os.environ["D2R_CLIP_PATH"], os.environ["D2R_TRAIN_STEPS_SCALE"]
     return launches
+
+
+# Phase H: the hash-grid field at full width (HashGridConfig()'s defaults,
+# hidden_dim 64), trained through the plain path on phase T's scan.
+HG_POINTS = 1 << 20
+HG_STEPS = 1000
+HG_POLL = 50
+
+
+def hashgrid_phase(dev, smi, st, bg_field, render_args) -> None:
+    """Phase H: hash_encode and its table gradient, card against the CPU
+    path; the field trained on phase T's scan (steps/s, held-out PSNR, the
+    loss); one clip group rendered with a hash-grid fg field (no K1)."""
+    from dream2real_tpu_torch.cli.selftest import SELFTEST_AABB, SETTINGS, VIEW, _score
+    from dream2real_tpu_torch.data import synth
+    from dream2real_tpu_torch.nerf import combined, march_kernel as mk
+    from dream2real_tpu_torch.nerf.hashgrid import HashGridConfig, hash_encode, init_hash_table
+    from dream2real_tpu_torch.nerf.model import NGPConfig
+    from dream2real_tpu_torch.nerf.trainer import (TrainConfig, init_train_state,
+                                                   make_train_chunk, use_train_kernel)
+
+    grid = HashGridConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    table = init_hash_table(grid, gen, dev)
+    pos = torch.rand((HG_POINTS, 3), generator=gen, device=dev) * 1.1 - 0.05
+    cot = torch.randn((HG_POINTS, grid.out_dim), generator=gen, device=dev)
+    enc, grads = {}, {}
+    for where in (dev, torch.device("cpu")):
+        t = table.detach().to(where).clone().requires_grad_(True)
+        p_, c_ = pos.to(where), cot.to(where)
+        if where.type == "cuda":  # warm: one forward and backward
+            warm = table.detach().clone().requires_grad_(True)
+            (hash_encode(p_, warm, grid) * c_).sum().backward()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = hash_encode(p_, t, grid)
+        (e * c_).sum().backward()
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        enc[where.type] = (e.detach().cpu(), dt)
+        grads[where.type] = t.grad.detach().cpu().double().reshape(-1)
+    err = float((enc[dev.type][0] - enc["cpu"][0]).abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(grads[dev.type], grads["cpu"], dim=0))
+    log(f"  H: hash_encode on {HG_POINTS} points, {grid.n_levels} levels of {grid.table_size} x "
+        f"{grid.n_features}: forward + table gradient {enc[dev.type][1] * 1e3:.1f} ms on the "
+        f"card, {enc['cpu'][1] * 1e3:.0f} ms on the host; card vs CPU max |difference| "
+        f"{err:.2e} (<= 1e-6), table gradient cosine {cos:.7f} (>= 0.99999) ({smi})")
+    if err > 1e-6 or cos < 0.99999:
+        raise AssertionError(f"H: hash_encode card vs CPU: {err}, gradient cosine {cos}")
+
+    cfg = NGPConfig(field_type="hashgrid", grid=grid, hidden_dim=64, **SELFTEST_AABB)
+    if use_train_kernel(cfg):
+        raise AssertionError("H: the hash-grid field would train through the kernels")
+    tc = TrainConfig(n_steps=HG_STEPS, batch_rays=8192, poll_steps=HG_POLL,
+                     dynamic_time_extension=False, seed=SEED)
+    state = init_train_state(cfg, tc, n_images=st["data"]["images_rgba"].shape[0], device=dev)
+    chunk = make_train_chunk(cfg, tc, SETTINGS, **st["data"])
+    state, first = chunk(state)  # the first 50 steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [first]
+    while state["step"] < HG_STEPS:
+        state, loss = chunk(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    field = state["field"]
+    scene = synth.default_scene()
+    h, w = st["data"]["dirs_cam"].shape[:2]
+    f = 0.9 * w  # the selftest's camera
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    views = st["data"]["images_rgba"].shape[0]
+    held = synth.orbit_poses(scene.centre, 2 * views, radius=0.5, height=0.4)[2 * VIEW + 1]
+    gt_rgb, gt_depth, _ = synth.render_scene(scene, held, K, h, w)
+    psnr, d_err, _ = _score(field, torch.as_tensor(held, dtype=torch.float32, device=dev),
+                            st["data"]["dirs_cam"], gt_rgb, gt_depth, 56 if h % 56 == 0 else 0)
+    log(f"  H: hash-grid field (hidden 64) trained {state['step']} steps on phase T's scan "
+        f"through the plain path: {(state['step'] - HG_POLL) / dt:.2f} steps/s; loss first "
+        f"{HG_POLL} steps {first:.5f}, last {HG_POLL} {losses[-1]:.5f}; held-out view PSNR "
+        f"{psnr:.2f} dB, median depth error {d_err * 1000:.1f} mm ({smi})")
+    if not (np.isfinite(losses).all() and losses[-1] < 0.5 * first):
+        raise AssertionError(f"H: the loss went {losses}")
+
+    # One clip group with the hash-grid field as the movable's: render_rays,
+    # not K1.
+    renderer = combined.CombinedRenderer(field, bg_field, device=dev, **render_args["renderer"])
+    mk.march.launches = 0
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = renderer.render(**render_args["render"])
+        torch.cuda.synchronize()
+        t_group = time.perf_counter() - t0
+    log(f"  H: one clip group ({len(imgs)} poses) with the hash-grid fg field in {t_group:.2f} s; "
+        f"K1 launches {mk.march.launches}")
+    if mk.march.launches != 0 or imgs.shape[1:] != (336, 336, 3):
+        raise AssertionError("H: the hash-grid group launched K1 or rendered the wrong shape")
 
 
 def main() -> int:
@@ -2089,7 +2425,21 @@ def main() -> int:
 
     # ------------------------------------------------------------ E engine
     phase("E engine (the scan, the demo from scan to goal pose, the argmax oracle)")
-    engine_phase(dev, smi, clip, clip_cfg, {**wrappers, **train_fns})
+    ctx = engine_phase(dev, smi, clip, clip_cfg, {**wrappers, **train_fns})
+
+    # ------------------------------------------------------------ V periphery
+    phase("V periphery (the pcd ablation, the gui replay, hole inpainting) on phase E's scan")
+    periphery_phase(dev, smi, {**wrappers, **train_fns}, ctx)
+    shutil.rmtree(ctx["root"], ignore_errors=True)
+
+    # ------------------------------------------------------------ H hash grid
+    phase("H hash-grid field (16 levels, F 2, 2^19 entries, 16-2048; hidden 64)")
+    hashgrid_phase(dev, smi, st, field_t, {
+        "renderer": dict(settings=settings, res=res, intrinsics=K, row_chunk=56,
+                         obj_aabb=obj_aabb, fg_crop=crop),
+        "render": dict(valid_poses=grid5[:clip_batch], render_poses=cams[0][None],
+                       render_cam_pose_idx=[0], depths_gt=gt_depth[None],
+                       movable_masks=(inst != 1)[None], T_WO_1=T_WO.cpu().numpy())})
 
     # ------------------------------------------------------------ results
     log(smi)

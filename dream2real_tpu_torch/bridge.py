@@ -4,7 +4,8 @@ pytrees into the port, and a port field or CLIP model back out
 (``field_to_numpy``, ``clip_to_numpy``). The reference's physics state goes
 across the same way (``phys_model_from_arrays``).
 
-NGP keys: trunk_w0..4, trunk_b0..4, color_w0..2 (f32, (in, out)).
+NGP keys: trunk_w0..4, trunk_b0..4 (mlp field) or table (L, T, F) and
+sigma_w0.. (hashgrid field), then color_w0..2 (f32, (in, out)).
 CLIP keys: v_*, t_*, v_blk{i} / t_blk{i} with ln1_g/b, ln2_g/b and
 qkv/proj/fc1/fc2 {w, b}, and logit_scale. Arrays are converted with numpy
 only (``np.asarray`` of a JAX array is a numpy array), so this module needs

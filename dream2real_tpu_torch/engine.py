@@ -4,15 +4,17 @@ dream2real_tpu/engine.py).
 The same three calls that ``cli/demo.py`` makes: ``build_scene_model()`` ->
 ``interpret_user_instr(instr)`` -> ``dream_best_pose(task_model)``, the same
 cache flags and the same artifacts (goal_pose.txt, pose_batch.txt,
-pose_scores.txt, best_render.png, cb_render/). Every stage runs on the
+pose_scores.txt, best_render.png, cb_render/, cost_volume.png,
+multiverse.png, and viewer.html under ``vis.gui``). Every stage runs on the
 engine's ``device``: CUDA unless the caller names another, and no GPU is an
 error unless the CPU was asked for.
 
-Not ported yet, and raising NotImplementedError with the ROADMAP item
-(queue 1, item 4): hole inpainting (``inpaint_holes``,
-perception/diffusion.py), the point-cloud visual models (``use_vis_pcds``,
-pcd/) and the viewer export (``vis.gui``, vis/viewer.py). The cost-volume
-export (vis/cost_volume.py) is skipped with one line.
+Every engine option of the repo's configs runs: hole inpainting
+(``inpaint_holes``, perception/diffusion.py), the point-cloud visual models
+and their splat renderer (``use_vis_pcds``, pcd/) and the viewer export
+(``vis.gui``, vis/viewer.py). A config with no ``engine`` section (the task
+fields' trainer blocks ``fg_scene.json`` / ``bg_scene.json``, which the
+engine reads itself) is refused with a ValueError.
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ from dream2real_tpu_torch.scoring import optimise_pose_grid
 from dream2real_tpu_torch.utils.profiling import StageTimer, trace
 
 _CURR_DIR = pathlib.Path(__file__).parent.absolute()
-_NOT_PORTED = ("{} needs {}, which is not ported yet (ROADMAP queue 1, item 4, the "
-               "periphery); set {} to false")
 
 
 def _aabb_equal(a, b) -> bool:
@@ -68,14 +68,13 @@ class ImaginationEngine:
         propagator=None,
         device=None,
     ):
+        if "engine" not in cfg.raw:
+            raise ValueError(
+                f"{cfg.files}: the config has no engine section; fg_scene.json and "
+                "bg_scene.json are the task fields' trainer blocks, which the engine reads "
+                "itself; give the engine a scene config (configs/*_demo.json, "
+                "configs/<scene>/*.json)")
         self.device = resolve_device(device)
-        for flag, module, key in (
-            ("inpaint_holes", "perception/diffusion.py", "engine.inpaint_holes"),
-            ("use_vis_pcds", "the point-cloud visual models (pcd/)", "engine.use_vis_pcds"),
-            ("gui", "the viewer export (vis/viewer.py)", "vis.gui"),
-        ):
-            if getattr(cfg, flag, False):
-                raise NotImplementedError(_NOT_PORTED.format(flag, module, key))
         self.embodied = embodied
         self.cfg = cfg
         self.data_dir = cfg.data_dir
@@ -113,6 +112,9 @@ class ImaginationEngine:
         self.stage_timer = StageTimer()
         self.segmentor = Segmentor(mask_generator=mask_generator, propagator=propagator)
         self.caption = cfg.caption
+        # Hole inpainting before segmentation and captioning (Telea's method;
+        # perception/diffusion.py).
+        self.inpaint_holes = bool(getattr(cfg, "inpaint_holes", False))
         if cfg.caption:
             self.captioner = Captioner(
                 topdown=self.topdown,
@@ -165,6 +167,8 @@ class ImaginationEngine:
                 intrinsics, self.scene_phys_bounds,
                 use_cache=self.use_cache_dynamic_masks, distortion=self.distortion,
             )
+        if self.inpaint_holes:
+            rgbs = self.inpaint_images(rgbs)
         self.depths_gt = np.stack([np.asarray(depths[i]) for i in self.render_cam_pose_idx])
 
         video_path = os.path.join(self.data_dir, "seg_images")
@@ -252,6 +256,22 @@ class ImaginationEngine:
         )
 
     # ------------------------------------------------------------------
+
+    def inpaint_images(self, rgbs, masks=None):
+        """Fill the scan's holes in the RGB frames when ``inpaint_holes`` is
+        set. masks: optional per-frame (H, W) hole masks (nonzero = fill);
+        None fills the white pixels. The frames feed segmentation,
+        captioning and the task fields; the full-scene field trains on the
+        frames it reads from disk, as in the JAX package."""
+        rgbs = np.asarray(rgbs)
+        if not self.inpaint_holes:
+            return rgbs
+        from dream2real_tpu_torch.perception.diffusion import inpaint
+
+        with self.stage_timer.stage("inpaint_holes"):
+            out = [inpaint(rgbs[i], None if masks is None else np.asarray(masks[i]))
+                   for i in range(len(rgbs))]
+        return np.stack(out)
 
     def determine_movable_obj(self, user_instr):
         obj_captions = [obj.name for obj in self.scene_model.objs]
@@ -454,29 +474,34 @@ class ImaginationEngine:
                         self.sample_res, disallow_regrasp=self.embodied, device=self.device,
                     )
 
-        fg = task_model.movable_obj.vis_model
-        bg = task_model.task_bground_obj.vis_model
-        res = getattr(self.cfg, "render_res", 336)
-        # The movable's collision shell bounds the cropped fast path (the fg
-        # marched only in its projected window).
-        clip_K = clip_view_intrinsics_like(
-            self.scene_model.intrinsics, (self.cfg.height, self.cfg.width), res=res)
-        obj_aabb, fg_crop = self._movable_crop(task_model.movable_obj.phys_model, res)
-        # The prefetch's crop guard ran over the same physics-valid set as
-        # optimise_pose_grid's, when its physics check was adopted above.
-        if (
-            pf is not None
-            and pf.get("fg_crop")
-            and phys_check is not None
-            and phys_check is pf.get("phys_check")
-            and _aabb_equal(pf.get("obj_aabb"), obj_aabb)
-        ):
-            fg_crop = max(fg_crop, pf["fg_crop"])
-        self.renderer = CombinedRenderer(
-            fg.field, bg.field, settings=fg.settings, res=res, intrinsics=clip_K,
-            out_render_path=os.path.join(self.data_dir, "cb_render"),
-            obj_aabb=obj_aabb, fg_crop=fg_crop, device=self.device,
-        )
+        if self.use_vis_pcds and not self.use_cache_goal_pose:
+            from dream2real_tpu_torch.pcd.renderer import PointCloudRenderer
+
+            self.renderer = PointCloudRenderer(task_model, device=self.device)
+        else:
+            fg = task_model.movable_obj.vis_model
+            bg = task_model.task_bground_obj.vis_model
+            res = getattr(self.cfg, "render_res", 336)
+            # The movable's collision shell bounds the cropped fast path (the
+            # fg marched only in its projected window).
+            clip_K = clip_view_intrinsics_like(
+                self.scene_model.intrinsics, (self.cfg.height, self.cfg.width), res=res)
+            obj_aabb, fg_crop = self._movable_crop(task_model.movable_obj.phys_model, res)
+            # The prefetch's crop guard ran over the same physics-valid set
+            # as optimise_pose_grid's, when its physics check was adopted.
+            if (
+                pf is not None
+                and pf.get("fg_crop")
+                and phys_check is not None
+                and phys_check is pf.get("phys_check")
+                and _aabb_equal(pf.get("obj_aabb"), obj_aabb)
+            ):
+                fg_crop = max(fg_crop, pf["fg_crop"])
+            self.renderer = CombinedRenderer(
+                fg.field, bg.field, settings=fg.settings, res=res, intrinsics=clip_K,
+                out_render_path=os.path.join(self.data_dir, "cb_render"),
+                obj_aabb=obj_aabb, fg_crop=fg_crop, device=self.device,
+            )
 
         if self.use_cache_goal_pose:
             best_pose = np.loadtxt(os.path.join(self.data_dir, "goal_pose.txt"))
@@ -502,6 +527,68 @@ class ImaginationEngine:
             np.savetxt(os.path.join(self.data_dir, "pose_scores.txt"), pose_scores)
 
         if vis_cost_vol:
-            print("cost volume export skipped: vis/cost_volume.py is not ported yet "
-                  "(ROADMAP queue 1, item 4)")
+            try:
+                with self.stage_timer.stage("artifacts"):
+                    from dream2real_tpu_torch.vis.cost_volume import (
+                        export_cost_volume,
+                        export_multiverse,
+                    )
+
+                    export_cost_volume(pose_scores, self.sample_res, pose_batch,
+                                       os.path.join(self.data_dir, "cost_volume.png"))
+                    fg_h = task_model.movable_obj.phys_model
+                    bg_h = task_model.task_bground_obj.phys_model
+                    if fg_h is not None and getattr(fg_h, "points", None) is not None:
+                        export_multiverse(
+                            pose_scores, pose_batch, fg_h.points, movable_init_pose,
+                            os.path.join(self.data_dir, "multiverse.png"),
+                            bground_points=None if bg_h is None else bg_h.points,
+                        )
+            except Exception as e:  # the exports are artifacts, best-effort as in the reference
+                print("cost volume export skipped:", e)
+
+        if getattr(self.cfg, "gui", False):
+            # The reference's vis.gui pops Open3D windows and the NGP GUI; the
+            # flag exports a self-contained HTML viewer of the same geometry.
+            try:
+                with self.stage_timer.stage("artifacts"):
+                    self._export_viewer(task_model, best_pose)
+            except Exception as e:
+                print("viewer export skipped:", e)
+
         return np.asarray(best_pose).reshape(4, 4)
+
+    def _export_viewer(self, task_model, best_pose) -> str:
+        from dream2real_tpu_torch.physics.mesh import load_obj
+        from dream2real_tpu_torch.vis.viewer import export_scene_html
+
+        points, meshes, frames = [], [], []
+        fg_h = task_model.movable_obj.phys_model
+        bg_h = task_model.task_bground_obj.phys_model
+        if fg_h is not None and getattr(fg_h, "points", None) is not None:
+            pts = np.asarray(fg_h.points)
+            pv = pts[pts[:, 3] > 0, :3]
+            points.append((pv, np.tile([255, 80, 80], (len(pv), 1)), "movable"))
+        if bg_h is not None and getattr(bg_h, "points", None) is not None:
+            pts = np.asarray(bg_h.points)
+            pv = pts[pts[:, 3] > 0, :3]
+            points.append((pv, np.tile([120, 120, 140], (len(pv), 1)), "background"))
+        mesh_dir = os.path.join(self.data_dir, "phys_mod")
+        if os.path.isdir(mesh_dir):
+            for fn in sorted(os.listdir(mesh_dir)):
+                if fn.startswith("mesh_concave_") and fn.endswith(".obj"):
+                    try:
+                        v, f = load_obj(os.path.join(mesh_dir, fn))
+                        meshes.append((v, f, "#44cc88", fn[:-4]))
+                    except Exception:
+                        pass
+        for i in self.render_cam_pose_idx:
+            frames.append((np.asarray(self.scene_model.opt_cam_poses[i]), f"cam{i}"))
+        frames.append((np.asarray(best_pose).reshape(4, 4), "goal"))
+        out = export_scene_html(
+            os.path.join(self.data_dir, "viewer.html"),
+            points=points, meshes=meshes, frames=frames,
+            title="dream2real_tpu \u2014 imagined placement",
+        )
+        print(f"interactive viewer exported: {out}")
+        return out

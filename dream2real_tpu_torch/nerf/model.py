@@ -1,10 +1,18 @@
-"""NGP-class NeRF field (port of dream2real_tpu/nerf/model.py, mlp field).
+"""NGP-class NeRF field (port of dream2real_tpu/nerf/model.py).
 
-Frequency-encoded positions -> width x depth MLP trunk -> (log-density, geo
-features), plus an SH-conditioned colour head. Numerics follow the
-reference: bf16 matmul inputs with f32 accumulation, bf16 casts between
-layers, f32 trunc_exp / sigmoid. The hashgrid field is not ported; its
-config is kept so snapshot headers round-trip.
+Two field types, as in the reference:
+
+- ``field_type="mlp"`` (the default): frequency-encoded positions -> width x
+  depth MLP trunk -> (log-density, geo features);
+- ``field_type="hashgrid"``: the multiresolution hash encoding
+  (nerf/hashgrid.py) -> bias-free density layers -> (log-density, geo
+  features). The march and training kernels cover the mlp field only, so
+  this field renders through ``render.render_rays`` and trains through
+  autograd, as in the JAX package.
+
+Both feed an SH-conditioned colour head. Numerics follow the reference:
+bf16 matmul inputs with f32 accumulation, bf16 casts between layers, f32
+trunc_exp / sigmoid.
 """
 
 from __future__ import annotations
@@ -16,18 +24,11 @@ import torch
 from torch import nn
 
 from dream2real_tpu_torch.device import BF16, F32, dot_bf16, dot_exact, resolve_device
-
-
-class HashGridConfig(NamedTuple):
-    n_levels: int = 16
-    n_features: int = 2
-    log2_hashmap_size: int = 19
-    base_resolution: int = 16
-    max_resolution: int = 2048
+from dream2real_tpu_torch.nerf.hashgrid import HashGridConfig, hash_encode, init_hash_table
 
 
 class NGPConfig(NamedTuple):
-    field_type: str = "mlp"  # only "mlp" is ported
+    field_type: str = "mlp"  # "mlp" | "hashgrid"
     posenc_deg: int = 10
     mlp_width: int = 256
     mlp_depth: int = 5
@@ -53,17 +54,24 @@ class NGPConfig(NamedTuple):
 
 def layer_dims(cfg: NGPConfig) -> dict[str, tuple[int, ...]]:
     """Parameter shapes in the reference's (in, out) layout, by key."""
-    if cfg.field_type != "mlp":
-        raise NotImplementedError(f"field_type {cfg.field_type!r} is not ported")
     shapes: dict[str, tuple[int, ...]] = {}
-    in_dim = d = cfg.posenc_dim
-    for i in range(cfg.mlp_depth):
-        if cfg.skip_layer and i == cfg.skip_layer:
-            d += in_dim
-        out = cfg.mlp_width if i < cfg.mlp_depth - 1 else 1 + cfg.geo_feat_dim
-        shapes[f"trunk_w{i}"] = (d, out)
-        shapes[f"trunk_b{i}"] = (out,)
-        d = out
+    if cfg.field_type == "hashgrid":
+        g = cfg.grid
+        shapes["table"] = (g.n_levels, g.table_size, g.n_features)
+        dims = [g.out_dim] + [cfg.hidden_dim] * (cfg.n_density_layers - 1) + [1 + cfg.geo_feat_dim]
+        for i in range(len(dims) - 1):
+            shapes[f"sigma_w{i}"] = (dims[i], dims[i + 1])
+    elif cfg.field_type == "mlp":
+        in_dim = d = cfg.posenc_dim
+        for i in range(cfg.mlp_depth):
+            if cfg.skip_layer and i == cfg.skip_layer:
+                d += in_dim
+            out = cfg.mlp_width if i < cfg.mlp_depth - 1 else 1 + cfg.geo_feat_dim
+            shapes[f"trunk_w{i}"] = (d, out)
+            shapes[f"trunk_b{i}"] = (out,)
+            d = out
+    else:
+        raise ValueError(cfg.field_type)
     cdims = [cfg.geo_feat_dim + cfg.sh_dim] + [cfg.color_width] * (cfg.n_color_layers - 1) + [3]
     for i in range(len(cdims) - 1):
         shapes[f"color_w{i}"] = (cdims[i], cdims[i + 1])
@@ -87,12 +95,15 @@ class NGPField(nn.Module):
 
 
 def init_ngp_params(cfg: NGPConfig, generator: torch.Generator, device=None) -> NGPField:
-    """Seeded field: weights uniform in +-sqrt(6 / fan_in), zero biases (the
-    reference's distribution; torch's generator gives other numbers)."""
+    """Seeded field: the hash table (first) uniform in +-1e-4, weights uniform
+    in +-sqrt(6 / fan_in), zero biases (the reference's distributions;
+    torch's generator gives other numbers)."""
     field = NGPField(cfg, device)
     with torch.no_grad():
         for k, p in field.named_parameters():
-            if "_w" in k:
+            if k == "table":
+                p.copy_(init_hash_table(cfg.grid, generator, p.device))
+            elif "_w" in k:
                 bound = math.sqrt(6.0 / p.shape[0])
                 u = torch.rand(p.shape, generator=generator, device=generator.device)
                 p.copy_((u * 2.0 - 1.0) * bound)
@@ -176,17 +187,24 @@ def density_fn(field: NGPField, positions: torch.Tensor):
     cfg = field.cfg
     lo, hi = _aabb(cfg, positions.device)
     pos01 = (positions - lo) / (hi - lo)
-    enc0 = posenc(pos01 * 2.0 - 1.0, cfg.posenc_deg).to(BF16)
-    h = enc0
-    for i in range(cfg.mlp_depth):
-        if cfg.skip_layer and i == cfg.skip_layer:
-            h = torch.cat([h, enc0], dim=-1)
-        w = getattr(field, f"trunk_w{i}")
-        b = getattr(field, f"trunk_b{i}").to(BF16).to(F32)
-        h = dot_exact(h, w) + b  # f32 products and sums, one rounding below
-        if i < cfg.mlp_depth - 1:
-            h = torch.relu(h)
-        h = h.to(BF16)
+    if cfg.field_type == "hashgrid":
+        h = hash_encode(pos01, field.table, cfg.grid).to(BF16)
+        for i in range(cfg.n_density_layers):
+            h = dot_bf16(h, getattr(field, f"sigma_w{i}"))  # no bias: relu commutes
+            if i < cfg.n_density_layers - 1:
+                h = torch.relu(h)
+    else:
+        enc0 = posenc(pos01 * 2.0 - 1.0, cfg.posenc_deg).to(BF16)
+        h = enc0
+        for i in range(cfg.mlp_depth):
+            if cfg.skip_layer and i == cfg.skip_layer:
+                h = torch.cat([h, enc0], dim=-1)
+            w = getattr(field, f"trunk_w{i}")
+            b = getattr(field, f"trunk_b{i}").to(BF16).to(F32)
+            h = dot_exact(h, w) + b  # f32 products and sums, one rounding below
+            if i < cfg.mlp_depth - 1:
+                h = torch.relu(h)
+            h = h.to(BF16)
     sigma = trunc_exp(h[..., 0].to(F32))
     inside = ((positions >= lo) & (positions <= hi)).all(dim=-1)
     sigma = torch.where(inside, sigma, torch.zeros_like(sigma))

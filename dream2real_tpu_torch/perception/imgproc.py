@@ -15,7 +15,9 @@ numpy and scipy (the GPU machine has no OpenCV):
 - ``dilate`` / ``erode``: ``cv2.dilate`` / ``cv2.erode`` with an all-ones
   kernel, anchored at the kernel's centre as OpenCV anchors it (k // 2, one
   pixel off the JAX package's placement for even k), through
-  ``ops.image``.
+  ``ops.image``;
+- ``inpaint_telea``: ``cv2.inpaint(img, mask, radius, cv2.INPAINT_TELEA)``,
+  Telea's fast marching with OpenCV's queue order and f32 arithmetic.
 
 Where OpenCV's fixed-point blur or its f32 angle rounds a value that lies on
 a threshold (a blurred value of one half, a box corner on an integer) the
@@ -24,6 +26,8 @@ two may fall on either side: the tests show each such difference a tie.
 
 from __future__ import annotations
 
+import heapq
+import itertools
 import math
 
 import numpy as np
@@ -313,3 +317,194 @@ def dilate(img: np.ndarray, ksize: int, iterations: int = 1) -> np.ndarray:
 def erode(img: np.ndarray, ksize: int, iterations: int = 1) -> np.ndarray:
     """``cv2.erode(img, np.ones((k, k)), iterations=n)``."""
     return _morph(img, ksize, iterations, take_min=True)
+
+
+# ---------------------------------------------------------------- inpainting
+# Telea's fast-marching inpainting (Telea 2004) as OpenCV's INPAINT_TELEA
+# computes it: the image padded by one pixel, the flags below, the distance T
+# solved from the 4-neighbourhood, a band of known pixels within the radius
+# given negative distances first, then each hole pixel filled in order of T
+# from the known pixels within the radius, weighted by direction, level and
+# distance, plus OpenCV's gradient term; rounded to uint8 half to even. Both
+# queues pop the least T, equal T in push order, as OpenCV's sorted list
+# does. The arithmetic is OpenCV's: f32 operations, and f64 where OpenCV
+# widens (the distance solve, the distance and level weights).
+_KNOWN, _BAND, _INSIDE, _CHANGE = 0, 1, 2, 3
+
+
+def _fm_solve(f, t, i1, j1, i2, j2) -> float:
+    """OpenCV's FastMarching_solve: T of a pixel from two 4-neighbours, in
+    f64, returned as f32."""
+    a11, a22 = float(t[i1, j1]), float(t[i2, j2])
+    m12 = min(a11, a22)
+    if f[i1, j1] != _INSIDE:
+        if f[i2, j2] != _INSIDE:
+            if abs(a11 - a22) >= 1.0:
+                sol = 1.0 + m12
+            else:
+                sol = (a11 + a22 + math.sqrt(2.0 - (a11 - a22) * (a11 - a22))) * 0.5
+        else:
+            sol = 1.0 + a11
+    elif f[i2, j2] != _INSIDE:
+        sol = 1.0 + a22
+    else:
+        sol = 1.0 + m12
+    return float(_F32(sol))
+
+
+def _fm_dist(f, t, i, j) -> float:
+    return min(min(_fm_solve(f, t, i - 1, j, i, j - 1), _fm_solve(f, t, i + 1, j, i, j - 1)),
+               min(_fm_solve(f, t, i - 1, j, i, j + 1), _fm_solve(f, t, i + 1, j, i, j + 1)))
+
+
+class _Queue:
+    """OpenCV's CvPriorityQueueFloat: the least T first, equal T in push
+    order. Starts with the nonzero pixels of ``flags`` at T 0, in raster
+    order."""
+
+    def __init__(self, flags: np.ndarray):
+        self._n = itertools.count()
+        self._heap = [(0.0, next(self._n), int(i), int(j)) for i, j in zip(*np.nonzero(flags))]
+
+    def __bool__(self) -> bool:
+        return bool(self._heap)
+
+    def push(self, T: float, i: int, j: int) -> None:
+        heapq.heappush(self._heap, (T, next(self._n), i, j))
+
+    def pop(self) -> tuple[int, int]:
+        return heapq.heappop(self._heap)[2:]
+
+
+def _march_outside(f, t, queue: _Queue) -> None:
+    """OpenCV's icvCalcFMM with negate: T outward over the INSIDE pixels of
+    ``f`` (the known ring within the radius), stored negated."""
+    rows, cols = f.shape
+    while queue:
+        ii, jj = queue.pop()
+        f[ii, jj] = _CHANGE
+        for i, j in ((ii - 1, jj), (ii, jj - 1), (ii + 1, jj), (ii, jj + 1)):
+            if i <= 0 or j <= 0 or i > rows or j > cols:
+                continue
+            if f[i, j] == _INSIDE:
+                dist = _fm_dist(f, t, i, j)
+                t[i, j] = dist
+                f[i, j] = _BAND
+                queue.push(dist, i, j)
+    change = f == _CHANGE
+    f[change] = _KNOWN
+    t[change] = -t[change]
+
+
+class _Disc:
+    """The offsets within the radius, k (rows) outer, l (columns) inner, and
+    what depends on the offset alone: r = (j - l, i - k) and the distance
+    weight 1 / |r|^3 (f64, rounded to f32)."""
+
+    def __init__(self, rng: int):
+        oy, ox = np.mgrid[-rng:rng + 1, -rng:rng + 1]
+        disc = oy * oy + ox * ox <= rng * rng
+        self.dk, self.dl = oy[disc], ox[disc]
+        self.ry, self.rx = (-self.dk).astype(_F32), (-self.dl).astype(_F32)
+        length = (self.rx * self.rx + self.ry * self.ry).astype(np.float64)
+        with np.errstate(divide="ignore"):
+            self.dst = (1.0 / (length * np.sqrt(length))).astype(_F32)
+
+
+# Neighbours of a sample whose flags pick the gradient's form: right, left,
+# down, up.
+_NB_K = np.array([0, 0, 1, -1])
+_NB_L = np.array([1, -1, 0, 0])
+
+
+def _telea_pixel(f, t, out, i, j, disc: _Disc) -> None:
+    """Fill hole pixel (i, j) (padded coordinates) of ``out`` (unpadded,
+    (H, W, C) uint8), every colour from the known pixels within the
+    radius."""
+    rows, cols = f.shape
+    ti = t[i, j]
+    # gradT, from the known 4-neighbours.
+    if f[i, j + 1] != _INSIDE:
+        gx = ((t[i, j + 1] - t[i, j - 1]) * _F32(0.5) if f[i, j - 1] != _INSIDE
+              else t[i, j + 1] - ti)
+    else:
+        gx = ti - t[i, j - 1] if f[i, j - 1] != _INSIDE else _F32(0)
+    if f[i + 1, j] != _INSIDE:
+        gy = ((t[i + 1, j] - t[i - 1, j]) * _F32(0.5) if f[i - 1, j] != _INSIDE
+              else t[i + 1, j] - ti)
+    else:
+        gy = ti - t[i - 1, j] if f[i - 1, j] != _INSIDE else _F32(0)
+    k = i + disc.dk
+    l = j + disc.dl
+    ok = (k > 0) & (l > 0) & (k < rows - 1) & (l < cols - 1)
+    ok[ok] = f[k[ok], l[ok]] != _INSIDE
+    k, l, rx, ry, dst = k[ok], l[ok], disc.rx[ok], disc.ry[ok], disc.dst[ok]
+    # The level weight: the f32 difference, then 1 / (1 + |d|) in f64.
+    lev = (1.0 / (1.0 + np.abs(t[k, l] - ti).astype(np.float64))).astype(_F32)
+    direction = rx * gx + ry * gy
+    direction[np.abs(direction) <= 0.01] = _F32(0.000001)
+    w = np.abs(dst * lev * direction)
+    # Image coordinates of the gradient's samples, clamped at the image
+    # border as OpenCV clamps them (the sample itself is read unclamped).
+    km = k - 1 + (k == 1)
+    kp = k - 1 - (k == rows - 2)
+    lm = l - 1 + (l == 1)
+    lp = l - 1 - (l == cols - 2)
+    known = f[k[:, None] + _NB_K, l[:, None] + _NB_L] != _INSIDE
+    r_in, l_in, d_in, u_in = (known[:, q, None] for q in range(4))
+    smp = out[np.stack([k - 1, km, km, km, km, kp + 1, km - 1, kp]),
+              np.stack([l - 1, lp + 1, lm - 1, lm, lp, lm, lm, lm])].astype(_F32)
+    own, right, left, mid, lft, down, up, dwn = smp
+    gix = np.where(r_in & l_in, (right - left) * _F32(2),
+                   np.where(r_in, right - mid, np.where(l_in, lft - left, _F32(0))))
+    giy = np.where(d_in & u_in, (down - up) * _F32(2),
+                   np.where(d_in, down - mid, np.where(u_in, dwn - up, _F32(0))))
+    wc = w[:, None]
+    s = np.concatenate([[_F32(1e-20)], w]).cumsum(dtype=_F32)[-1]
+    ia = (wc * own).cumsum(axis=0, dtype=_F32)[-1]
+    jx = -(wc * (gix * rx[:, None])).cumsum(axis=0, dtype=_F32)[-1]
+    jy = -(wc * (giy * ry[:, None])).cumsum(axis=0, dtype=_F32)[-1]
+    norm = np.sqrt(jx * jx + jy * jy) + _F32(1e-20)
+    sat = ia / s + (jx + jy) / norm + _F32(0.5)
+    out[i - 1, j - 1] = np.clip(np.rint(sat), 0, 255).astype(np.uint8)
+
+
+def inpaint_telea(img: np.ndarray, mask: np.ndarray, radius: float = 3) -> np.ndarray:
+    """``cv2.inpaint(img, mask, radius, cv2.INPAINT_TELEA)``: (H, W, C) or
+    (H, W) uint8 with the pixels where ``mask`` is nonzero filled; every
+    other pixel is returned as it was."""
+    img = np.asarray(img)
+    squeeze = img.ndim == 2
+    out = (img[..., None] if squeeze else img).copy()
+    h, w = out.shape[:2]
+    rng = min(max(int(np.rint(radius)), 1), 100)
+    f = np.zeros((h + 2, w + 2), np.uint8)  # the flags, padded by one pixel
+    f[1:-1, 1:-1] = np.where(np.asarray(mask) != 0, _INSIDE, _KNOWN)
+    inside = f == _INSIDE
+    cross = ndimage.binary_dilation(inside, np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], bool))
+    band = cross & ~inside
+    band[0, :] = band[-1, :] = band[:, 0] = band[:, -1] = False
+    t = np.full(f.shape, 1.0e6, _F32)
+    t[band] = 0
+    # T outside the hole, within the radius: negative distances.
+    ring = ndimage.binary_dilation(inside, np.ones((2 * rng + 1,) * 2, bool)) & ~inside & ~band
+    ring[0, :] = ring[-1, :] = ring[:, 0] = ring[:, -1] = False
+    f_out = np.where(ring, _INSIDE, _KNOWN).astype(np.uint8)
+    _march_outside(f_out, t, _Queue(band))
+    # The hole, from its boundary inwards.
+    disc = _Disc(rng)
+    queue = _Queue(band)
+    rows, cols = f.shape
+    while queue:
+        ii, jj = queue.pop()
+        f[ii, jj] = _KNOWN
+        for i, j in ((ii - 1, jj), (ii, jj - 1), (ii + 1, jj), (ii, jj + 1)):
+            if i <= 0 or j <= 0 or i > rows or j > cols:
+                continue
+            if f[i, j] == _INSIDE:
+                dist = _fm_dist(f, t, i, j)
+                t[i, j] = dist
+                _telea_pixel(f, t, out, i, j, disc)
+                f[i, j] = _BAND
+                queue.push(dist, i, j)
+    return out[..., 0] if squeeze else out

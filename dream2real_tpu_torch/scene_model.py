@@ -6,18 +6,15 @@ bounds), TaskModel (task-specific fg / bg visual models built by masking,
 the lazy two-body physics models, free_visual_models) and the legacy
 ObjectModel2D.
 
-vis_model handles are reconstruction.NGPModel; phys_model handles are the
-mesh .obj paths, with the collision state (TSDF grid on the device, shell
-points) carried by the physics.models.PhysModel handles. The point-cloud
-visual models (``use_vis_pcds``) are not ported yet and raise.
+vis_model handles are reconstruction.NGPModel, or pcd.visual_model's
+PointCloud on the point-cloud ablation path (``use_vis_pcds``); phys_model
+handles are the mesh .obj paths, with the collision state (TSDF grid on the
+device, shell points) carried by the physics.models.PhysModel handles.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-_NO_PCDS = ("use_vis_pcds: the point-cloud visual models (pcd/visual_model.py) are not "
-            "ported yet")
 
 
 class ObjectModel:
@@ -105,7 +102,15 @@ class TaskModel:
             task_bground_masks[i] |= m.astype(bool)
 
         if use_vis_pcds:
-            raise NotImplementedError(_NO_PCDS)
+            from dream2real_tpu_torch.pcd.visual_model import get_vis_pcds
+
+            vis_model = get_vis_pcds(
+                scene_model.rgbs, scene_model.depths, scene_model.opt_cam_poses,
+                scene_model.intrinsics, task_bground_masks, 1,
+                scene_model.scene_bounds, save_dir=save_dir, vis=False,
+                use_cache=use_cache, pcds_type=pcds_type,
+                single_view_idx=single_view_idx,
+            )[0]
         else:
             from dream2real_tpu_torch.reconstruction import get_vis_ngps
 
@@ -130,7 +135,15 @@ class TaskModel:
         """Train the movable-object visual model (scene_model.py:98-113)."""
         movable_masks = np.asarray(scene_model.masks) != movable_obj.mask_idx
         if use_vis_pcds:
-            raise NotImplementedError(_NO_PCDS)
+            from dream2real_tpu_torch.pcd.visual_model import get_vis_pcds
+
+            return get_vis_pcds(
+                scene_model.rgbs, scene_model.depths, scene_model.opt_cam_poses,
+                scene_model.intrinsics, movable_masks, 1,
+                scene_model.scene_bounds, save_dir=save_dir, vis=False,
+                use_cache=use_cache, pcds_type=pcds_type,
+                single_view_idx=single_view_idx,
+            )[0]
         from dream2real_tpu_torch.reconstruction import get_vis_ngps
 
         return get_vis_ngps(

@@ -16,10 +16,17 @@ package's, on the CPU.
   pose.
 - The prefetch against D2R_PREFETCH=0, bit for bit; the CLI's argv; the
   entry points raising without a GPU.
+- Every config under configs/ builds the engine; the pcd ablation
+  (configs/synth/pcd.json with narrow fields) replays the JAX engine's caches
+  to the same pose_batch.txt and goal_pose.txt; a replay with vis.gui writes
+  viewer.html with the JAX engine's JSON (the goal frame to 1e-5) and the
+  cost-volume and multiverse PNGs.
 """
 
+import glob
 import json
 import os
+import re
 import shutil
 
 import jax
@@ -75,8 +82,8 @@ def fake_llm(prompt: str, temperature: float) -> str:
     raise AssertionError(f"unexpected prompt: {prompt[:80]}")
 
 
-def _write_cfg(path: str, **engine):
-    raw = json.load(open(os.path.join(ROOT, "configs", "synth_demo.json")))
+def _write_cfg(path: str, base: str = "synth_demo.json", **engine):
+    raw = json.load(open(os.path.join(ROOT, "configs", base)))
     raw["engine"].update(sample_res=[8, 8, 2, 1, 1, 1], render_res=32, clip_batch=4, **engine)
     raw["trainer"].update(n_steps=40)
     f = 0.9 * W
@@ -107,38 +114,54 @@ def _outputs(d):
             for k in ("goal_pose", "pose_batch", "pose_scores")}
 
 
+OV = {"field": FIELD, "train": TRAIN}
+
+
+def _jax_run(base, cfg_path) -> str:
+    """The JAX engine's full run on a fresh scan -> the directory of its
+    caches."""
+    made = str(base / "made")
+    synth.write_dataset(made, n_views=VIEWS, h=H, w=W)
+    eng = JEngine(JConfig(cfg_path, made), llm_backend=fake_llm, clip_loader=_jax_clip,
+                  ngp_overrides=OV)
+    eng.build_scene_model()
+    eng.dream_best_pose(eng.interpret_user_instr(INSTR), vis_cost_vol=False)
+    return made
+
+
+def _replay(tag, cfg_path, made, d, vis_cost_vol=False):
+    """One engine's replay of the JAX run's caches in a copy of ``made``.
+    -> (engine, task model)."""
+    shutil.copytree(made, d)
+    if tag == "jax":
+        e = JEngine(_cached(JConfig(cfg_path, d)), llm_backend=fake_llm,
+                    clip_loader=_jax_clip, ngp_overrides=OV)
+    else:
+        e = ImaginationEngine(_cached(Config(cfg_path, d)), llm_backend=fake_llm,
+                              clip_loader=_port_clip, ngp_overrides=OV, device="cpu")
+    e.build_scene_model()
+    task = e.interpret_user_instr(INSTR)
+    e.dream_best_pose(task, vis_cost_vol=vis_cost_vol)
+    return e, task
+
+
 @pytest.fixture(scope="module")
 def parity(tmp_path_factory):
     """The JAX engine's full run, then both engines' replays of its caches."""
     base = tmp_path_factory.mktemp("engine_parity")
     cfg_path = str(base / "cfg.json")
     _write_cfg(cfg_path)
-    made = str(base / "made")
-    synth.write_dataset(made, n_views=VIEWS, h=H, w=W)
-    ov = {"field": FIELD, "train": TRAIN}
-    eng = JEngine(JConfig(cfg_path, made), llm_backend=fake_llm, clip_loader=_jax_clip,
-                  ngp_overrides=ov)
-    eng.build_scene_model()
-    eng.dream_best_pose(eng.interpret_user_instr(INSTR), vis_cost_vol=False)
-
+    made = _jax_run(base, cfg_path)
     out = {}
     for tag in ("jax", "torch"):
-        d = str(base / tag)
-        shutil.copytree(made, d)
-        if tag == "jax":
-            e = JEngine(_cached(JConfig(cfg_path, d)), llm_backend=fake_llm,
-                        clip_loader=_jax_clip, ngp_overrides=ov)
-        else:
-            e = ImaginationEngine(_cached(Config(cfg_path, d)), llm_backend=fake_llm,
-                                  clip_loader=_port_clip, ngp_overrides=ov, device="cpu")
-        e.build_scene_model()
-        e.dream_best_pose(e.interpret_user_instr(INSTR), vis_cost_vol=False)
-        out[tag] = _outputs(d)
+        _replay(tag, cfg_path, made, str(base / tag))
+        out[tag] = _outputs(str(base / tag))
         out[tag]["raw"] = (np.asarray(scoring.LAST_RUN_INFO["raw_scores"]) if tag == "torch"
                            else None)
     from dream2real_tpu import scoring as jscoring
 
     out["jax"]["raw"] = np.asarray(jscoring.LAST_RUN_INFO["raw_scores"])
+    out["made"], out["cfg_path"] = made, cfg_path
     return out
 
 
@@ -310,6 +333,8 @@ def test_demo_cli_checks_cache_flags_and_scan(tmp_path):
 
 
 def test_engine_refuses_a_silent_cpu_fallback_and_unported_options(tmp_path):
+    """No GPU and no device="cpu": the engine raises. The options that were
+    not ported (inpainting, the point-cloud models, the viewer) now build."""
     from dream2real_tpu_torch.data.loader import D2RDataLoader
 
     cfg_path = str(tmp_path / "cfg.json")
@@ -324,9 +349,100 @@ def test_engine_refuses_a_silent_cpu_fallback_and_unported_options(tmp_path):
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
     assert ImaginationEngine(cfg, device="cpu").device.type == "cpu"
-    for flag, what in (("inpaint_holes", "diffusion"), ("use_vis_pcds", "pcd"),
-                       ("gui", "viewer")):
+    for flag in ("inpaint_holes", "use_vis_pcds", "gui"):
         c = Config(cfg_path, str(tmp_path))
         setattr(c, flag, True)
-        with pytest.raises(NotImplementedError, match=what):
-            ImaginationEngine(c, device="cpu")
+        assert getattr(ImaginationEngine(c, device="cpu").cfg, flag)
+
+
+CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.json"), recursive=True))
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: os.path.relpath(p, ROOT))
+def test_engine_builds_from_every_config(path, tmp_path):
+    """Every scene config builds the engine with its options as the config
+    sets them; the task fields' trainer blocks (no engine section) are
+    refused with a ValueError that names them."""
+    cfg = Config(path, str(tmp_path))
+    if "engine" not in cfg.raw:
+        assert os.path.basename(path) in ("fg_scene.json", "bg_scene.json")
+        with pytest.raises(ValueError, match="no engine section"):
+            ImaginationEngine(cfg, device="cpu")
+        return
+    eng = ImaginationEngine(cfg, device="cpu")
+    assert eng.use_vis_pcds == cfg.use_vis_pcds and eng.inpaint_holes == cfg.inpaint_holes
+    assert eng.cfg.gui == cfg.raw.get("vis", {}).get("gui", False)
+
+
+def test_configs_cover_every_option():
+    assert len(CONFIGS) == 45
+    raws = [json.load(open(p)) for p in CONFIGS]
+    assert sum(r.get("vis", {}).get("gui", False) for r in raws) == 39
+    assert sum(r.get("engine", {}).get("use_vis_pcds", False) for r in raws) == 5
+
+
+@pytest.fixture(scope="module")
+def pcd_parity(tmp_path_factory):
+    """configs/synth/pcd.json with narrow fields: the JAX engine's full run,
+    then both engines' replays of its caches (the point clouds included)."""
+    base = tmp_path_factory.mktemp("engine_pcd")
+    cfg_path = str(base / "cfg.json")
+    _write_cfg(cfg_path, base=os.path.join("synth", "pcd.json"))
+    made = _jax_run(base, cfg_path)
+    out = {}
+    for tag in ("jax", "torch"):
+        e, task = _replay(tag, cfg_path, made, str(base / tag))
+        out[tag] = dict(_outputs(str(base / tag)), engine=e, task=task)
+    return out
+
+
+def test_pcd_engine_replays_to_the_jax_goal_pose(pcd_parity):
+    from dream2real_tpu_torch.pcd.renderer import PointCloudRenderer
+    from dream2real_tpu_torch.pcd.visual_model import PointCloud
+
+    j, t = pcd_parity["jax"], pcd_parity["torch"]
+    assert isinstance(t["engine"].renderer, PointCloudRenderer)
+    assert isinstance(t["task"].movable_obj.vis_model, PointCloud)
+    np.testing.assert_array_equal(t["task"].movable_obj.vis_model.points,
+                                  j["task"].movable_obj.vis_model.points)
+    np.testing.assert_array_equal(t["pose_batch"], j["pose_batch"])
+    assert t["pose_batch"].shape == (128, 16)
+    np.testing.assert_array_equal(t["pose_scores"] != 0, j["pose_scores"] != 0)
+    np.testing.assert_allclose(t["pose_scores"], j["pose_scores"], rtol=2e-2, atol=1e-6)
+    np.testing.assert_array_equal(t["goal_pose"], j["goal_pose"])
+
+
+def _viewer_data(path):
+    html = open(path).read()
+    return json.loads(re.search(r"const DATA = (.*);\n", html).group(1))
+
+
+def test_gui_replay_writes_the_jax_viewer(parity, tmp_path):
+    """A replay of the parity run's caches with vis.gui: viewer.html holds
+    the JAX engine's layers (the goal frame to 1e-5), and both PNGs decode."""
+    from dream2real_tpu_torch.utils.png import read_png
+
+    raw = json.load(open(parity["cfg_path"]))
+    raw["vis"]["gui"] = True
+    cfg_path = str(tmp_path / "gui.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    data = {}
+    for tag in ("jax", "torch"):
+        d = str(tmp_path / tag)
+        e, _ = _replay(tag, cfg_path, parity["made"], d, vis_cost_vol=True)
+        data[tag] = _viewer_data(os.path.join(d, "viewer.html"))
+        assert "artifacts" in e.stage_timer.stages
+        if tag == "torch":
+            for png_name in ("cost_volume.png", "multiverse.png"):
+                img = read_png(os.path.join(d, png_name))
+                assert img.ndim == 3 and img.shape[2] == 3 and (img != 255).any()
+    j, t = data["jax"], data["torch"]
+    assert t["title"] == j["title"]
+    assert [L["name"] for L in t["layers"]] == [L["name"] for L in j["layers"]]
+    assert any(L["kind"] == "mesh" for L in t["layers"])
+    for a, b in zip(t["layers"], j["layers"]):
+        if a["name"] == "goal":
+            np.testing.assert_allclose(a["T"], b["T"], atol=1e-5)
+        else:
+            assert a == b, a["name"]

@@ -1,6 +1,7 @@
 """The port stands alone: no file of dream2real_tpu_torch/ nor chip_smoke.py
-imports jax or anything of the JAX package, and importing every module of
-the port leaves jax unimported."""
+imports jax or anything of the JAX package, nor an imaging or model package
+the GPU machine lacks (cv2, PIL, matplotlib, diffusers, open3d), and
+importing every module of the port leaves jax unimported."""
 
 import ast
 import pathlib
@@ -16,7 +17,8 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "dream2real_tpu")
+    return top in ("jax", "jaxlib", "dream2real_tpu", "cv2", "PIL", "matplotlib", "diffusers",
+                   "open3d")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -611,8 +611,17 @@ def test_scene_model_objects():
     np.testing.assert_array_equal(tm.movable_masks, [[True, False], [False, False]])
     tm.free_visual_models()
     assert tm.task_bground_obj.vis_model is None
-    with pytest.raises(NotImplementedError, match="pcd"):
-        tscene.TaskModel.create_movable_vis_model(sm, obj, None, None, use_vis_pcds=True)
+    # The point-cloud visual models: the movable's pixels of one view.
+    rgbs = np.full((1, 20, 20, 3), 90, np.uint8)
+    depths = np.full((1, 20, 20), 0.5, np.float32)
+    masks = np.zeros((1, 20, 20), np.int64)
+    masks[0, 2:19, 2:19] = 1
+    sm2 = tscene.SceneModel((0.5, 0, 0), [obj], obj, rgbs, depths, [np.eye(4)],
+                            np.array([[20.0, 0, 10], [0, 20.0, 10], [0, 0, 1]]), masks,
+                            [[-1, -1, 0], [1, 1, 1]], 3)
+    pcd = tscene.TaskModel.create_movable_vis_model(sm2, obj, None, None, use_vis_pcds=True,
+                                                    pcds_type=0)
+    assert pcd.points.shape == (9, 3) and (pcd.colors == 90).all()
     o2 = tscene.ObjectModel2D("a", None, None, (1, 2), None)
     assert o2.pos == (1, 2)
 
