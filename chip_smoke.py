@@ -2,7 +2,9 @@
 physics models of its scan and check the configs' pose grids, imagine and
 score with the field, run the grid scorer on it (with and without the
 physics check), run the attention bench, the demo from scan to goal pose,
-the point-cloud ablation and the artifacts, and the hash-grid field.
+the native ingest, the point-cloud ablation and the artifacts, the
+hash-grid field, the reference-scale scoring runs and joint extrinsics
+refinement.
 
     python3 chip_smoke.py            # needs one card
     python3 chip_smoke.py --profile  # also print torch.profiler tables of
@@ -80,7 +82,10 @@ Phases (any failure raises; the exit code is then nonzero):
                 against its plain version there: at most 2e-4 of the rays
                 beyond 5e-3, each of them shown ill-conditioned (the plain
                 version moves by half the ray's gap or more under 1-64 ulp
-                nudges of the ray), their gaps under (0.25, 0.5, 0.5)
+                nudges of the ray), their gaps under (0.25, 0.5, 0.5); the
+                flagged rays also through the plain march in f64 (a second
+                witness): how far K1 and the f32 plain version each stand
+                from it, printed
   4 main vs plain  one 32-pose clip group through the kernels and through
                 their plain versions: renders (99.9% of pixels identical, none
                 more than 2 levels apart unless on one of K1's flagged rays
@@ -117,9 +122,14 @@ Phases (any failure raises; the exit code is then nonzero):
                 K6 and K7 launched (K3 only beneath K2, K8 not), the fields
                 and the tower on the card, and a replay from the caches
                 (dynamic masks, segs, camera poses, physics, fields) with
-                the same goal pose to 1e-5. E3: the synth argmax oracle
+                the same goal pose to 1e-5; the scan decoded by the native
+                ingest (the loader's record). E3: the synth argmax oracle
                 (experiments/validate_synth_argmax.py, xyz mode) on E2's
                 directory: its four gates
+  N ingest      on phase E's scan: the native ingest (native/, built with
+                the host compiler and zlib) against the numpy codec
+                (utils/png.py), rgb, depth and masks byte for byte, and a
+                720 x 1280 Paeth-filtered frame decoded both ways, timed
   V periphery   on phase E's scan. V1: cli/demo.py's main on
                 configs/synth/pcd.json (single_view_idx 10, see PCD_VIEW):
                 the point-cloud visual models and the device splat
@@ -140,6 +150,20 @@ Phases (any failure raises; the exit code is then nonzero):
                 through the plain path (steps/s, held-out PSNR, the last 50
                 steps' loss under half the first 50's); one clip group with
                 the hash-grid field as the movable's, no K1 launch
+  R ref scale   experiments/run_refscale.py (70,000 shopping poses through
+                optimise_pose_grid, a field trained 500 steps, the
+                full-size random ViT-L/14-336; sustained poses/s, peak
+                pending MB, peak device memory, the stages) and
+                run_shelfscale.py (2,211,840 shelf poses through dedup,
+                regrasp and make_unsupcol_check, the valid ones scored up
+                to the cap of 65,536): K1, K2 and K4 launched in each, every
+                score finite, the best pose a (scored) grid pose, valid
+                poses found, the keep fractions 0.375 and 0.25
+  X extrinsics  experiments/extr_grad_ab.py at 5 deg / 30 mm for X_STEPS
+                steps, the fused arm (K5-K7 every step, K7 with ray
+                gradients) and the plain autograd arm (no training kernel):
+                each lowers the perturbed cameras' mean rotation error and
+                keeps the anchors' drift below the start
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
 
@@ -629,7 +653,10 @@ def engine_phase(dev, smi, clip, clip_cfg, counters) -> dict:
         f"(fused_score {info['stage_s'].get('fused_score', float('nan')):.2f} s); "
         f"launches {launches}")
     log(f"  E2: goal pose {np.round(goal[:3, 3], 4).tolist()}; result.txt "
-        f"{result.splitlines()[:3]}")
+        f"{result.splitlines()[:3]}; the scan's frames decoded by the {eng.frame_decoder} "
+        f"ingest")
+    if eng.frame_decoder != "native":
+        raise AssertionError(f"E2: the loader decoded the scan with {eng.frame_decoder}")
     for artifact in (
         "goal_pose.txt", "pose_batch.txt", "pose_scores.txt", "best_render.png",
         "opt_cam_poses.npy", "full_base.ingp", "fg_base.ingp", "bg_base.ingp",
@@ -1036,6 +1063,174 @@ def hashgrid_phase(dev, smi, st, bg_field, render_args) -> None:
         f"K1 launches {mk.march.launches}")
     if mk.march.launches != 0 or imgs.shape[1:] != (336, 336, 3):
         raise AssertionError("H: the hash-grid group launched K1 or rendered the wrong shape")
+
+
+# Phase N: the native ingest (native/d2r_native.cpp, built with the host
+# compiler and zlib) against the numpy codec, and the host decode of a 720 x
+# 1280 Paeth-filtered frame that PERF.md records (133 ms through the codec).
+CODEC_PAETH_MS = 133
+
+
+def ingest_phase(ctx) -> None:
+    """Phase N on phase E's scan: the native RGB-D ingest and PNG decoder
+    against utils/png.py, byte for byte, each timed (host)."""
+    from dream2real_tpu_torch import build, native
+    from dream2real_tpu_torch.utils import png
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    t_build = time.perf_counter() - t0
+    scan, n = ctx["scan"], ENGINE_VIEWS
+    paths = {sub: [os.path.join(scan, sub, f"{prefix}_{i:04d}.png") for i in range(n)]
+             for sub, prefix in (("images", "rgb"), ("depth", "depth"), ("masks", "mask"))}
+    t0 = time.perf_counter()
+    loaded = native.load_rgbd_dataset(scan, n, ENGINE_H, ENGINE_W)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rgb = png.read_pngs(paths["images"])
+    depth = png.read_pngs(paths["depth"]).astype(np.float32) / 1000.0
+    t_codec = time.perf_counter() - t0
+    if loaded is None or loaded[0].tobytes() != rgb.tobytes() \
+            or loaded[1].tobytes() != depth.tobytes():
+        raise AssertionError("N: the native ingest of phase E's scan differs from the codec's")
+    masks = png.read_pngs(paths["masks"])
+    if b"".join(native.png_read(p).tobytes() for p in paths["masks"]) != masks.tobytes():
+        raise AssertionError("N: the native decoder's masks differ from the codec's")
+    big = np.ascontiguousarray(np.tile(ctx["frames"][0], (4, 4, 1)))  # 720 x 1280
+    path = os.path.join(ctx["root"], "paeth_720x1280.png")
+    png.write_png(path, big, filter_type=4)
+    times = {"native": [], "codec": []}
+    for _ in range(5):
+        for way, read in (("native", native.png_read), ("codec", png.read_png)):
+            t0 = time.perf_counter()
+            got = read(path)
+            times[way].append(time.perf_counter() - t0)
+            if got.tobytes() != big.tobytes():
+                raise AssertionError(f"N: the {way} decode of the Paeth frame differs")
+    ms = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    log(f"  N: native library built in {t_build:.2f} s ({build.NATIVE_DIR}); phase E's scan ({n} "
+        f"views of {ENGINE_H} x {ENGINE_W}, rgb + depth): native ingest {t_native * 1e3:.1f} ms, "
+        f"the codec {t_codec * 1e3:.1f} ms, bytes identical (masks too); a 720 x 1280 "
+        f"Paeth-filtered RGB frame from the file, median of 5: native {ms['native']:.2f} ms, "
+        f"codec {ms['codec']:.2f} ms (PERF.md records {CODEC_PAETH_MS} ms for the codec; host, "
+        f"{os.cpu_count()} cores)")
+
+
+# Phase R: the reference-scale runs (experiments/run_refscale.py,
+# run_shelfscale.py at their defaults). The JAX package's TPU v5e records,
+# history and not targets (experiments/results/refscale_final_r5.json,
+# shelfscale_r5_postfix.json).
+REFSCALE_RECORD = {"poses_per_s_sustained": 235.3, "wall_s": 297.4}
+SHELF_RECORD = {"phys_poses_per_s": 2736.5, "n_valid": 10484, "score_poses_per_s": 119.6}
+SHELF_KEEP = (0.375, 0.25)  # the JAX package's dedup and regrasp keep fractions
+
+
+def _in_grid(best, pose_batch) -> np.ndarray:
+    return np.flatnonzero(np.all(np.isclose(pose_batch, best.reshape(1, 16), atol=1e-6), axis=1))
+
+
+def refscale_phase(dev, smi, counters) -> None:
+    """Phase R: 70,000 shopping poses and the shelf's 2,211,840-pose grid
+    through the port's scripts; K1, K2 and K4 launched in each."""
+    from dream2real_tpu_torch.data import synth
+    from dream2real_tpu_torch.experiments import run_refscale, run_shelfscale
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ref")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for tag, fn in (("R1 run_refscale", lambda: run_refscale.run(device=dev, data_dir=root,
+                                                                  log=log)),
+                    ("R2 run_shelfscale", lambda: run_shelfscale.run(device=dev, log=log))):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        t_all = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()
+                    if k in ("march (K1)", "ln_qkv_attention (K2)", "attention_causal (K4)")}
+        record = {k: v for k, v in out.items()
+                  if k not in ("best_pose", "pose_batch", "pose_scores", "is_valid", "scored_mask")}
+        log(f"  {tag}: {json.dumps(record)}; the whole run {t_all:.2f} s; launches {launches}")
+        if any(v == 0 for v in launches.values()):
+            raise AssertionError(f"{tag}: a kernel of the path was not launched: {launches}")
+        scores = out["pose_scores"]
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"{tag}: a score is not finite")
+        if tag.startswith("R1"):
+            hit = _in_grid(out["best_pose"], out["pose_batch"])
+            log(f"  R1: {out['n_poses']} poses at {out['poses_per_s_sustained']:.2f} poses/s "
+                f"sustained, peak pending {out['peak_pending_mb']} MB, peak device memory "
+                f"{out['peak_mem_gb']:.3f} GiB, stages {out['stage_s']} ({smi}); the JAX "
+                f"package's TPU v5e record (history, not a target): {REFSCALE_RECORD}")
+            if out["scores_nonzero"] != out["n_poses"] or len(hit) != 1:
+                raise AssertionError(f"R1: {out['scores_nonzero']} scored poses; best pose in the "
+                                     f"grid at {hit.tolist()}")
+        else:
+            grid, *_ = run_shelfscale.shelf_grid(synth.default_scene().centre, out["grid"], dev)
+            hit = _in_grid(out["best_pose"], grid)
+            log(f"  R2: physics {out['n_poses']} poses in {out['phys_wall_s']:.2f} s = "
+                f"{out['phys_poses_per_s']:.1f} poses/s, {out['n_valid']} valid, "
+                f"{out['n_scored']} scored at {out['score_poses_per_s']:.2f} poses/s, peak "
+                f"{out['peak_hbm_gb']:.3f} GiB ({smi}); the JAX package's TPU v5e record "
+                f"(history): {SHELF_RECORD}")
+            keep = (out["dedup_keep_frac"], out["regrasp_keep_frac"])
+            if keep != SHELF_KEEP:
+                raise AssertionError(f"R2: dedup / regrasp keep fractions {keep}, not {SHELF_KEEP}")
+            # The orientation grid repeats rotations (what the dedup drops),
+            # so the best pose may equal several grid poses: one is scored.
+            if (out["n_valid"] == 0 or not out["scored_mask"][hit].any()
+                    or out["scores_nonzero"] != out["n_scored"]):
+                raise AssertionError(f"R2: {out['n_valid']} valid, best pose at {hit.tolist()}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+# Phase X: joint extrinsics refinement (experiments/extr_grad_ab.py) at one
+# level, both arms, at the protocol's 4000 steps: at 1000 the field is still
+# fog (loss 0.020) and pulls the plain arm's cameras further off (5.000 ->
+# 5.117 deg on an H100). The JAX package's TPU record
+# (experiments/results/extr_grad_ab.json, 5 deg / 30 mm) is history, not a
+# target.
+X_STEPS = 4000
+X_LEVEL = (5.0, 30.0)
+EXTR_RECORD = {"xla_exact": {"rot_deg": 2.837, "trans_mm": 29.43, "anchor_rot_deg": 1.608,
+                             "steps_per_s": 55.6},
+               "fused_approx": {"rot_deg": 1.651, "trans_mm": 21.90, "anchor_rot_deg": 0.283,
+                                "steps_per_s": 120.7}}
+
+
+def extrinsics_phase(dev, smi, counters) -> None:
+    """Phase X: the perturbed cameras refined by the fused kernels (K5-K7,
+    K7 with ray gradients) and by plain autograd; each arm must lower the
+    mean rotation error and keep the anchors nearer than the start."""
+    from dream2real_tpu_torch.experiments import extr_grad_ab as ea
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+
+    train = ("density_sample (K5)", "train_fwd (K6)", "train_bwd (K7)")
+    for name, flag in ea.ARMS:
+        for c in counters.values():
+            c.launches = 0
+        tk.train_bwd.ray_grad_launches = 0
+        torch.cuda.synchronize()
+        res = ea.run(X_STEPS, levels=[X_LEVEL], arms=[(name, flag)], device=dev, log=log)
+        lvl = next(iter(res["levels"].values()))
+        init, arm = lvl["init"], lvl[name]
+        launches = {k: counters[k].launches for k in train}
+        ray = tk.train_bwd.ray_grad_launches
+        log(f"  X {name}: {X_STEPS} steps at {arm['steps_per_s']:.2f} steps/s; rotation "
+            f"{init['rot_deg']:.3f} -> {arm['rot_deg']:.3f} deg (max {arm['rot_deg_max']:.3f}), "
+            f"translation {init['trans_mm']:.2f} -> {arm['trans_mm']:.2f} mm, anchors "
+            f"{arm['anchor_rot_deg']:.3f} deg, loss {arm['final_loss']:.5f}; launches {launches}, "
+            f"K7 with ray gradients {ray} ({smi}); the JAX package's TPU record at 4000 steps "
+            f"(history): {EXTR_RECORD['fused_approx' if flag == '1' else 'xla_exact']}")
+        fused = flag == "1"
+        if fused and not (all(v == X_STEPS for v in launches.values()) and ray == X_STEPS):
+            raise AssertionError(f"X {name}: launches {launches}, ray-gradient K7 {ray}")
+        if not fused and any(launches.values()):
+            raise AssertionError(f"X {name}: a training kernel launched: {launches}")
+        if not (arm["rot_deg"] < init["rot_deg"] and arm["anchor_rot_deg"] < init["rot_deg"]):
+            raise AssertionError(f"X {name}: rotation {init['rot_deg']} -> {arm['rot_deg']}, "
+                                 f"anchors {arm['anchor_rot_deg']}")
 
 
 def main() -> int:
@@ -2125,7 +2320,21 @@ def main() -> int:
                     moved = torch.maximum(moved, torch.stack(k1_gaps(out, base), 1).amax(1))
         ratio = moved / torch.stack(gaps, 1).amax(1)[flagged]
         held = int((ratio >= 0.5).sum())
+        # The second witness: the flagged rays through the plain march in
+        # f64 (the same bf16 weights and activation roundings, every
+        # operation in f64), and how far the f32 kernel and the f32 plain
+        # version each stand from it (largest of the rgb, alpha, depth gaps).
+        ref64 = mk.march_plain(*sub, *k1_rest, dtype=torch.float64)
+        d_k1 = torch.stack(k1_gaps([g[flagged].double() for g in got_t], ref64), 1).amax(1)
+        d_pl = torch.stack(k1_gaps([r[flagged].double() for r in ref_t], ref64), 1).amax(1)
     n_flag, n_live_t = int(flagged.numel()), int(live_t.numel())
+    if n_flag:
+        log(f"  K1's f64 witness on the {n_flag} flagged rays: K1 stands max "
+            f"{float(d_k1.max()):.3e} (median {float(d_k1.median()):.3e}) from the f64 march, "
+            f"the f32 plain version max {float(d_pl.max()):.3e} (median "
+            f"{float(d_pl.median()):.3e}); K1 the nearer on {int((d_k1 < d_pl).sum())}, the "
+            f"plain version on {int((d_pl < d_k1).sum())}; per ray (K1, plain): "
+            + ", ".join(f"({a:.3e}, {b:.3e})" for a, b in zip(d_k1.tolist(), d_pl.tolist())))
     log(f"  K1 vs plain on the trained field: max |rgb|, |alpha|, |depth| differences "
         f"{err_t[0]:.3e}, {err_t[1]:.3e}, {err_t[2]:.3e} (held under {K1_TRAINED_GAPS}); "
         f"{n_flag} of {n_live_t} rays beyond {K1_TOL} (held under {K1_FLAGGED:.0e} of them); "
@@ -2427,6 +2636,10 @@ def main() -> int:
     phase("E engine (the scan, the demo from scan to goal pose, the argmax oracle)")
     ctx = engine_phase(dev, smi, clip, clip_cfg, {**wrappers, **train_fns})
 
+    # ------------------------------------------------------------ N ingest
+    phase("N native ingest (native/d2r_native.cpp) against the codec on phase E's scan")
+    ingest_phase(ctx)
+
     # ------------------------------------------------------------ V periphery
     phase("V periphery (the pcd ablation, the gui replay, hole inpainting) on phase E's scan")
     periphery_phase(dev, smi, {**wrappers, **train_fns}, ctx)
@@ -2440,6 +2653,15 @@ def main() -> int:
         "render": dict(valid_poses=grid5[:clip_batch], render_poses=cams[0][None],
                        render_cam_pose_idx=[0], depths_gt=gt_depth[None],
                        movable_masks=(inst != 1)[None], T_WO_1=T_WO.cpu().numpy())})
+
+    # --------------------------------------------------- R reference scale
+    phase("R reference scale (run_refscale: 70,000 poses; run_shelfscale: 2,211,840)")
+    refscale_phase(dev, smi, {**wrappers, **train_fns})
+
+    # --------------------------------------------------- X extrinsics
+    phase(f"X extrinsics refinement (extr_grad_ab at {X_LEVEL[0]:g} deg / {X_LEVEL[1]:g} mm, "
+          f"{X_STEPS} steps, both arms)")
+    extrinsics_phase(dev, smi, {**wrappers, **train_fns})
 
     # ------------------------------------------------------------ results
     log(smi)

@@ -1,10 +1,14 @@
-"""Build and load the hand-written CUDA kernels under ``csrc/``.
+"""Build and load the hand-written CUDA kernels under ``csrc/`` and the
+native ingest under ``native/``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with nvcc into
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, keyed by a
 hash of its source and flags, so a fresh checkout builds everything on first
-use and a changed source rebuilds. Loaded through ctypes. Nothing here runs
-at import time: the CPU tests import every module without a compiler.
+use and a changed source rebuilds. ``native/d2r_native.cpp`` (the PNG codec
+and the RGB-D ingest, host code) compiles the same way with the host C++
+compiler and zlib into ``build/native/``. Loaded through ctypes. Nothing
+here runs at import time: the CPU tests import every module without a
+compiler.
 """
 
 from __future__ import annotations
@@ -33,6 +37,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+NATIVE_SRC = Path(__file__).resolve().parent / "native" / "d2r_native.cpp"
+NATIVE_DIR = BUILD_DIR.parent / "native"
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -103,6 +111,31 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, out, pending)
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
+    return lib
+
+
+def load_native() -> ctypes.CDLL:
+    """The native ingest's library, built on first use with the host C++
+    compiler (``$CXX``, else c++ or g++) and ``-lz`` into
+    ``build/native/d2r_native-<hash>.so``. Raises when it cannot be built."""
+    lib = _LIBS.get("native")
+    if lib is not None:
+        return lib
+    key = hashlib.sha256(NATIVE_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    out = NATIVE_DIR / f"d2r_native-{key}.so"
+    if not out.exists():
+        cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler: the native ingest cannot be built")
+        NATIVE_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SRC), "-lz"],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the native ingest failed to build:\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _LIBS["native"] = lib
     return lib
 
 

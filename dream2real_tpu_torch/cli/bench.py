@@ -10,7 +10,8 @@ is assumed; the work per pose is that of the real scorer), random text
 embeddings, and D2R_BENCH_POSES (512) poses of the shopping grid through
 ``make_imagine_and_score`` with D2R_BENCH_CLIP_BATCH (32), D2R_BENCH_FG_CROP
 (128) and D2R_BENCH_DISPATCH (256) poses a dispatch, after one warm
-dispatch. Prints ONE JSON line last: {"metric", "value", "unit", "device"},
+dispatch, after a bounded wait for a healthy card (D2R_BENCH_HEALTH_WAIT_S,
+default 1800 s; 0 skips it). Prints ONE JSON line last: {"metric", "value", "unit", "device"},
 the device as nvidia-smi names it with its power limit. The reference's
 "vs_baseline" is left out: its denominator was an estimate nobody measured.
 """
@@ -39,6 +40,7 @@ from dream2real_tpu_torch.nerf.trainer import (
 from dream2real_tpu_torch.ops import cameras
 from dream2real_tpu_torch.parallel.imagine import make_imagine_and_score
 from dream2real_tpu_torch.sampling import sample_poses_grid
+from dream2real_tpu_torch.utils.health import wait_cuda_healthy
 
 
 def device_line(dev: torch.device) -> str:
@@ -54,6 +56,9 @@ def device_line(dev: torch.device) -> str:
 def run_bench(device=None, log=lambda m: print(m, file=sys.stderr, flush=True)) -> dict:
     """Train, then time the imagine-and-score loop. -> the JSON line's dict."""
     dev = resolve_device(device)
+    # The bench runs unattended: a wedged or degraded card would hang it or
+    # record a number off by orders of magnitude (utils/health.py).
+    wait_cuda_healthy(1800.0, env_var="D2R_BENCH_HEALTH_WAIT_S", device=dev)
     t_start = time.time()
     res = 336
     clip_cfg = CLIPConfig()

@@ -2,9 +2,12 @@
 dream2real_tpu/data/loader.py).
 
 - ``load_rgbds``: poses.txt (stacked 4 x 4) + images/rgb_%04d.png +
-  depth/depth_%04d.png (mm uint16 -> metres f32), decoded with the port's PNG
-  codec, all frames of a directory as one batch. Host numpy arrays, as the
-  engine consumes them.
+  depth/depth_%04d.png (mm uint16 -> metres f32), all frames of a directory
+  as one batch, by the native ingest (``native/``) as the JAX loader does
+  first; a scan it does not take (grey or RGBA frames, another size) is
+  decoded by the numpy codec (``utils/png.py``) with a warning.
+  ``decoder`` records which of the two ("native" or "numpy") decoded the
+  frames. Host numpy arrays, as the engine consumes them.
 - ``remove_background``: each frame's depth back-projected to the world on
   the device, pixels outside scene_phys_bounds marked (world z > -0.40 guard,
   the bounds' z_min forced to -100), then a 50 px dilate-then-erode closing;
@@ -19,10 +22,12 @@ pixel on a bounds face can then fall the other way (a tie).
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
 
+from dream2real_tpu_torch import native
 from dream2real_tpu_torch.device import F32, resolve_device, to_numpy
 from dream2real_tpu_torch.ops import cameras
 from dream2real_tpu_torch.ops.image import dilate, erode
@@ -45,6 +50,7 @@ class D2RDataLoader:
         self.depth_data = None
         self.T_WC_data = None
         self.dynamic_masks = None
+        self.decoder = None  # "native" or "numpy", once load_rgbds has run
 
     def load_rgbds(self):
         """-> (rgbs (N, H, W, 3) uint8, depths (N, H, W) f32 metres, T_WC
@@ -52,13 +58,23 @@ class D2RDataLoader:
         T_WC = np.loadtxt(self.traj_file).reshape([-1, 4, 4])
         size = len(T_WC)
         self.size = size
-        rgbs = read_pngs([os.path.join(self.rgb_dir, f"rgb_{i:04d}.png") for i in range(size)])
-        depths = read_pngs([os.path.join(self.depth_dir, f"depth_{i:04d}.png")
-                            for i in range(size)])
-        if rgbs.ndim == 3:  # a grey scan
-            rgbs = np.repeat(rgbs[..., None], 3, axis=-1)
-        self.rgb_data = np.ascontiguousarray(rgbs[..., :3])
-        self.depth_data = depths.astype(np.float32) / 1000.0  # mm -> metres
+        loaded = native.load_rgbd_dataset(self.root_dir, size, self.height, self.width)
+        if loaded is not None:
+            self.decoder = "native"
+            self.rgb_data, self.depth_data = loaded
+        else:
+            self.decoder = "numpy"
+            warnings.warn(f"{self.root_dir}: a frame is not 8-bit RGB + 16-bit depth of "
+                          f"{self.height} x {self.width}; the frames are decoded by the numpy "
+                          "codec (utils/png.py)", stacklevel=2)
+            rgbs = read_pngs([os.path.join(self.rgb_dir, f"rgb_{i:04d}.png")
+                              for i in range(size)])
+            depths = read_pngs([os.path.join(self.depth_dir, f"depth_{i:04d}.png")
+                                for i in range(size)])
+            if rgbs.ndim == 3:  # a grey scan
+                rgbs = np.repeat(rgbs[..., None], 3, axis=-1)
+            self.rgb_data = np.ascontiguousarray(rgbs[..., :3])
+            self.depth_data = depths.astype(np.float32) / 1000.0  # mm -> metres
         self.T_WC_data = T_WC.astype(np.float32)
         return self.rgb_data, self.depth_data, self.T_WC_data
 

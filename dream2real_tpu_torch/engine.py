@@ -108,6 +108,7 @@ class ImaginationEngine:
 
         self.depths_gt = None
         self.scene_model = None
+        self.frame_decoder = None  # which codec decoded the scan's frames (data/loader.py)
         # Wall-clock seconds per stage; cli/demo.py prints the report.
         self.stage_timer = StageTimer()
         self.segmentor = Segmentor(mask_generator=mask_generator, propagator=propagator)
@@ -158,6 +159,7 @@ class ImaginationEngine:
             dataloader = D2RDataLoader(self.cfg, device=self.device)
             if raw_data is None:
                 rgbs, depths, raw_cam_poses = dataloader.load_rgbds()
+                self.frame_decoder = dataloader.decoder  # "native" or "numpy"
             else:
                 rgbs, depths, raw_cam_poses = (np.asarray(x) for x in raw_data)
                 dataloader.size = len(depths)

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from dream2real_tpu_torch import build
-from dream2real_tpu_torch.device import BF16, F32, bf16_round, dot_exact
+from dream2real_tpu_torch.device import BF16, F32
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField, posenc_freqs, sh_encode_deg4
 from dream2real_tpu_torch.nerf.render import RenderSettings, ray_aabb
 
@@ -173,62 +173,73 @@ def _unpack(w: torch.Tensor, b: torch.Tensor) -> tuple[dict, dict]:
     return mats, biases
 
 
-def _fma(a, b, c):
+def _fma(a, b, c, dtype=F32):
     """a * b + c with one rounding (f32 products are exact in f64), the
     contraction the kernel and the reference's compiled kernel both apply to
     the sample position, encoding angle and world position."""
-    return (a.double() * b.double() + c.double()).float()
+    return (a.double() * b.double() + c.double()).to(dtype)
 
 
 def march_plain(origins, dirs, t0, t1, box, w, b, n_samples: int, min_transmittance: float,
-                early_exit: bool, count_samples: bool = False):
+                early_exit: bool, count_samples: bool = False, dtype=F32):
     """Plain PyTorch version of the kernel, ray-major. origins and dirs
     (N, 3), t0/t1 (N,) (a ray with t0 >= t1 is a miss), box (12,) =
     [field lo | field hi | march lo | march hi]. -> rgb (N, 3), alpha (N,),
     depth (N,), f32. count_samples=True also returns the number of samples
-    the data needs: those of live rays still above min_transmittance."""
+    the data needs: those of live rays still above min_transmittance.
+    ``dtype=torch.float64`` computes every operation in f64 (the weights and
+    the activations' bf16 roundings kept): a witness of what f32 rounding
+    does to a ray."""
+    origins, dirs, t0, t1, box = (x.to(dtype) for x in (origins, dirs, t0, t1, box))
+
+    def rnd(x):
+        return x.to(BF16).to(dtype)
+
+    def dot(x, m):  # dot_exact at ``dtype``
+        return torch.matmul(x.to(BF16).to(dtype), m.to(BF16).to(dtype))
+
     mats, biases = _unpack(w, b)
     n = dirs.shape[0]
     lo_f, hi_f, lo_m, hi_m = box.reshape(4, 3)
     lo_i, hi_i = torch.maximum(lo_f, lo_m), torch.minimum(hi_f, hi_m)
     scale = 2.0 / (hi_f - lo_f)
-    a3 = _fma(origins, scale, -2.0 * lo_f / (hi_f - lo_f) - 1.0)
+    a3 = _fma(origins, scale, -2.0 * lo_f / (hi_f - lo_f) - 1.0, dtype)
     b3 = dirs * scale
-    freqs = posenc_freqs(10, dirs.device)
+    freqs = posenc_freqs(10, dirs.device).to(dtype)
     A = (a3[:, None, :] * freqs[None, :, None]).reshape(n, 30)  # freq-major [f0 xyz | f1 xyz ...]
     B = (b3[:, None, :] * freqs[None, :, None]).reshape(n, 30)
     dn = torch.sqrt((dirs * dirs).sum(dim=-1))
     dt = (t1 - t0) / n_samples
-    sh = bf16_round(sh_encode_deg4(dirs / dn[:, None]))
+    sh = rnd(sh_encode_deg4(dirs / dn[:, None]))
     live = t0 < t1
-    zeros1 = torch.zeros(n, 1, dtype=F32, device=dirs.device)
+    zeros1 = torch.zeros(n, 1, dtype=dtype, device=dirs.device)
 
-    trans = torch.ones(n, dtype=F32, device=dirs.device)
-    acc_rgb = torch.zeros(n, 3, dtype=F32, device=dirs.device)
-    acc_a = torch.zeros(n, dtype=F32, device=dirs.device)
-    acc_d = torch.zeros(n, dtype=F32, device=dirs.device)
+    trans = torch.ones(n, dtype=dtype, device=dirs.device)
+    acc_rgb = torch.zeros(n, 3, dtype=dtype, device=dirs.device)
+    acc_a = torch.zeros(n, dtype=dtype, device=dirs.device)
+    acc_d = torch.zeros(n, dtype=dtype, device=dirs.device)
     needed = torch.zeros((), dtype=torch.int64, device=dirs.device)
     for s in range(n_samples):
         alive = live & (trans >= min_transmittance)
         needed = needed + alive.sum()
         if early_exit and not bool(alive.any()):
             break  # exact: every remaining weight is zero
-        ts = _fma(torch.full_like(dt, s + 0.5), dt, t0)
-        ang = _fma(B, ts[:, None], A)
-        p2 = _fma(b3, ts[:, None], a3)
-        enc = bf16_round(torch.cat([p2, torch.sin(ang), torch.cos(ang), zeros1], dim=1))
-        h = bf16_round(torch.relu(dot_exact(enc, mats["w0"]) + biases["b0"]))
-        h = bf16_round(torch.relu(dot_exact(h, mats["w1"]) + biases["b1"]))
-        h = bf16_round(torch.relu(dot_exact(h, mats["w2"]) + biases["b2"]))
-        h = bf16_round(torch.relu(dot_exact(torch.cat([enc, h], 1), mats["w3"]) + biases["b3"]))
-        hm = dot_exact(torch.cat([h, sh], 1), mats["wm"]) + biases["bm"]
+        ts = _fma(torch.full_like(dt, s + 0.5), dt, t0, dtype)
+        ang = _fma(B, ts[:, None], A, dtype)
+        p2 = _fma(b3, ts[:, None], a3, dtype)
+        enc = rnd(torch.cat([p2, torch.sin(ang), torch.cos(ang), zeros1], dim=1))
+        h = rnd(torch.relu(dot(enc, mats["w0"]) + biases["b0"]))
+        h = rnd(torch.relu(dot(h, mats["w1"]) + biases["b1"]))
+        h = rnd(torch.relu(dot(h, mats["w2"]) + biases["b2"]))
+        h = rnd(torch.relu(dot(torch.cat([enc, h], 1), mats["w3"]) + biases["b3"]))
+        hm = dot(torch.cat([h, sh], 1), mats["wm"]) + biases["bm"]
         sigma = torch.exp(torch.clamp(hm[:, 64], -15.0, 15.0))
-        pos = _fma(dirs, ts[:, None], origins)
+        pos = _fma(dirs, ts[:, None], origins, dtype)
         inside = ((pos >= lo_i) & (pos <= hi_i)).all(dim=1)
         sigma = torch.where(inside, sigma, torch.zeros_like(sigma))
-        c = bf16_round(torch.relu(hm[:, :64]))
-        c = bf16_round(torch.relu(dot_exact(c, mats["cw1"])))
-        rgb = torch.sigmoid(dot_exact(c, mats["cw2"])[:, :3])
+        c = rnd(torch.relu(hm[:, :64]))
+        c = rnd(torch.relu(dot(c, mats["cw1"])))
+        rgb = torch.sigmoid(dot(c, mats["cw2"])[:, :3])
 
         delta = 1e2 if s == n_samples - 1 else dt
         a = 1.0 - torch.exp(-sigma * delta * dn)

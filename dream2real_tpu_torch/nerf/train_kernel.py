@@ -619,6 +619,7 @@ def _train_bwd_launch(origins, dirs, ts, box, img, b, min_transmittance: float,
         build.stream_ptr(dev))
     build.check(err, "train_bwd")
     train_bwd.launches += 1
+    train_bwd.ray_grad_launches += bool(ray_grads)  # the launches that fill d_o, d_d
     if n > 0:
         train_bwd.row_pass_launches += geo["n_chunks"]
         train_bwd.weight_grad_launches += geo["n_chunks"]
@@ -665,6 +666,7 @@ def weight_grads_plain(rows: torch.Tensor) -> torch.Tensor:
 # Launches of K7 and of its two parts (the row pass, the weight-gradient
 # products: one of each a chunk).
 train_bwd.launches = train_bwd.row_pass_launches = train_bwd.weight_grad_launches = 0
+train_bwd.ray_grad_launches = 0
 
 
 # ------------------------------------------------------- autograd + renderer

@@ -38,6 +38,44 @@ def euler_angles_to_matrix(euler: torch.Tensor, convention: str = "XYZ") -> torc
     return (mats[0] @ mats[1]) @ mats[2]
 
 
+def matrix_to_quaternion(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices -> quaternions (w, x, y, z), pytorch3d semantics.
+
+    m: (..., 3, 3) -> (..., 4). Of the four candidate constructions the one
+    with the largest |q_i| is taken (the stable one near trace -1), and the
+    sign is made canonical (w >= 0).
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    q_abs_sq = torch.stack([1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
+                            1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    q_abs = torch.sqrt(torch.clamp(q_abs_sq, min=0.0))
+    cands = torch.stack([
+        torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], -1),
+        torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], -1),
+        torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], -1),
+    ], dim=-2)
+    cands = cands / (2.0 * torch.clamp(q_abs[..., None], min=0.1))
+    best = torch.argmax(q_abs, dim=-1)
+    quat = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    return quat * torch.where(quat[..., :1] < 0, -1.0, 1.0)
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions (w, x, y, z), normalised here -> rotation matrices.
+    q: (..., 4) -> (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ]
+    return torch.stack(rows, dim=-1).reshape(q.shape[:-1] + (3, 3))
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues exponential map so(3) -> SO(3). w: (..., 3) -> (..., 3, 3).
 
@@ -73,6 +111,16 @@ def pose_inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = T[..., :3, :3].transpose(-1, -2)
     ti = -(Rt @ T[..., :3, 3:4])[..., 0]
     return make_pose(Rt, ti)
+
+
+def accio_to_ngp(T: torch.Tensor) -> torch.Tensor:
+    """OpenCV ("accio") -> NGP camera convention: the y and z columns negated.
+    (..., 4, 4); its own inverse, so it is also ``ngp_to_accio``."""
+    flip = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=T.dtype, device=T.device)
+    return T * flip
+
+
+ngp_to_accio = accio_to_ngp
 
 
 def convert_virtual_pose(

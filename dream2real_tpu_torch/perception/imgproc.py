@@ -16,8 +16,9 @@ numpy and scipy (the GPU machine has no OpenCV):
   kernel, anchored at the kernel's centre as OpenCV anchors it (k // 2, one
   pixel off the JAX package's placement for even k), through
   ``ops.image``;
-- ``inpaint_telea``: ``cv2.inpaint(img, mask, radius, cv2.INPAINT_TELEA)``,
-  Telea's fast marching with OpenCV's queue order and f32 arithmetic.
+- ``inpaint_telea`` / ``inpaint_ns``: ``cv2.inpaint(img, mask, radius,
+  cv2.INPAINT_TELEA / INPAINT_NS)``, the fast marching with OpenCV's queue
+  order and its f32 arithmetic.
 
 Where OpenCV's fixed-point blur or its f32 angle rounds a value that lies on
 a threshold (a blurred value of one half, a box corner on an integer) the
@@ -398,17 +399,20 @@ def _march_outside(f, t, queue: _Queue) -> None:
 
 class _Disc:
     """The offsets within the radius, k (rows) outer, l (columns) inner, and
-    what depends on the offset alone: r = (j - l, i - k) and the distance
-    weight 1 / |r|^3 (f64, rounded to f32)."""
+    what depends on the offset alone: r = (j - l, i - k), |r|^2, Telea's
+    distance weight 1 / |r|^3 (f64, rounded to f32) and the Navier-Stokes
+    one 1 / (|r|^4 + 1) (f32)."""
 
     def __init__(self, rng: int):
         oy, ox = np.mgrid[-rng:rng + 1, -rng:rng + 1]
         disc = oy * oy + ox * ox <= rng * rng
         self.dk, self.dl = oy[disc], ox[disc]
         self.ry, self.rx = (-self.dk).astype(_F32), (-self.dl).astype(_F32)
-        length = (self.rx * self.rx + self.ry * self.ry).astype(np.float64)
+        self.len2 = self.rx * self.rx + self.ry * self.ry
+        length = self.len2.astype(np.float64)
         with np.errstate(divide="ignore"):
             self.dst = (1.0 / (length * np.sqrt(length))).astype(_F32)
+        self.dst_ns = _F32(1) / (self.len2 * self.len2 + _F32(1))
 
 
 # Neighbours of a sample whose flags pick the gradient's form: right, left,
@@ -469,10 +473,10 @@ def _telea_pixel(f, t, out, i, j, disc: _Disc) -> None:
     out[i - 1, j - 1] = np.clip(np.rint(sat), 0, 255).astype(np.uint8)
 
 
-def inpaint_telea(img: np.ndarray, mask: np.ndarray, radius: float = 3) -> np.ndarray:
-    """``cv2.inpaint(img, mask, radius, cv2.INPAINT_TELEA)``: (H, W, C) or
-    (H, W) uint8 with the pixels where ``mask`` is nonzero filled; every
-    other pixel is returned as it was."""
+def _fmm_start(img: np.ndarray, mask: np.ndarray, radius: float):
+    """OpenCV's cvInpaint set-up: -> (out (H, W, C) copy, squeeze, the
+    radius in pixels, flags f and distances t padded by one pixel, the band
+    (the hole's 4-neighbours outside it, T 0))."""
     img = np.asarray(img)
     squeeze = img.ndim == 2
     out = (img[..., None] if squeeze else img).copy()
@@ -486,14 +490,12 @@ def inpaint_telea(img: np.ndarray, mask: np.ndarray, radius: float = 3) -> np.nd
     band[0, :] = band[-1, :] = band[:, 0] = band[:, -1] = False
     t = np.full(f.shape, 1.0e6, _F32)
     t[band] = 0
-    # T outside the hole, within the radius: negative distances.
-    ring = ndimage.binary_dilation(inside, np.ones((2 * rng + 1,) * 2, bool)) & ~inside & ~band
-    ring[0, :] = ring[-1, :] = ring[:, 0] = ring[:, -1] = False
-    f_out = np.where(ring, _INSIDE, _KNOWN).astype(np.uint8)
-    _march_outside(f_out, t, _Queue(band))
-    # The hole, from its boundary inwards.
-    disc = _Disc(rng)
-    queue = _Queue(band)
+    return out, squeeze, rng, f, t, band
+
+
+def _march_inside(f, t, queue: _Queue, fill) -> None:
+    """The hole, from its boundary inwards: each INSIDE 4-neighbour of the
+    popped pixel gets its T, is filled by ``fill(i, j)`` and joins the band."""
     rows, cols = f.shape
     while queue:
         ii, jj = queue.pop()
@@ -504,7 +506,88 @@ def inpaint_telea(img: np.ndarray, mask: np.ndarray, radius: float = 3) -> np.nd
             if f[i, j] == _INSIDE:
                 dist = _fm_dist(f, t, i, j)
                 t[i, j] = dist
-                _telea_pixel(f, t, out, i, j, disc)
+                fill(i, j)
                 f[i, j] = _BAND
                 queue.push(dist, i, j)
+
+
+def inpaint_telea(img: np.ndarray, mask: np.ndarray, radius: float = 3) -> np.ndarray:
+    """``cv2.inpaint(img, mask, radius, cv2.INPAINT_TELEA)``: (H, W, C) or
+    (H, W) uint8 with the pixels where ``mask`` is nonzero filled; every
+    other pixel is returned as it was."""
+    out, squeeze, rng, f, t, band = _fmm_start(img, mask, radius)
+    inside = f == _INSIDE
+    # T outside the hole, within the radius: negative distances.
+    ring = ndimage.binary_dilation(inside, np.ones((2 * rng + 1,) * 2, bool)) & ~inside & ~band
+    ring[0, :] = ring[-1, :] = ring[:, 0] = ring[:, -1] = False
+    f_out = np.where(ring, _INSIDE, _KNOWN).astype(np.uint8)
+    _march_outside(f_out, t, _Queue(band))
+    disc = _Disc(rng)
+    _march_inside(f, t, _Queue(band), lambda i, j: _telea_pixel(f, t, out, i, j, disc))
+    return out[..., 0] if squeeze else out
+
+
+# Navier-Stokes inpainting (Bertalmio, Bertozzi and Sapiro 2001) as OpenCV's
+# INPAINT_NS computes it (icvNSInpaintFMM): the same set-up, queue and T as
+# Telea's without the outside march; each hole pixel is the mean of the known
+# pixels within the radius, weighted by 1 / (|r|^4 + 1) and by |cos| of the
+# angle between r and an isophote estimate from absolute differences of the
+# image (so the sign of r does not matter), in f32, the mean itself in f64
+# (rounded half to even for uint8).
+def _ns_pixel(f, out, i, j, disc: _Disc) -> None:
+    """Fill hole pixel (i, j) (padded coordinates) of ``out`` (unpadded, (H,
+    W, C) uint8 or float32), every channel from the known pixels within the
+    radius."""
+    rows, cols = f.shape
+    k = i + disc.dk
+    l = j + disc.dl
+    ok = (k > 0) & (l > 0) & (k < rows - 1) & (l < cols - 1)
+    ok[ok] = f[k[ok], l[ok]] != _INSIDE
+    k, l = k[ok], l[ok]
+    rx, ry = disc.rx[ok, None], disc.ry[ok, None]
+    # Image coordinates of the isophote's samples, clamped at the image
+    # border as OpenCV clamps them.
+    km = k - 1 + (k == 1)
+    kp = k - 1 - (k == rows - 2)
+    lm = l - 1 + (l == 1)
+    lp = l - 1 - (l == cols - 2)
+    known = f[k[:, None] + _NB_K, l[:, None] + _NB_L] != _INSIDE
+    r_in, l_in, d_in, u_in = (known[:, q, None] for q in range(4))
+    # uint8 differences as exact ints (OpenCV sums them before its cast to
+    # f32, which the f32 sum of two values under 256 repeats exactly).
+    wide = np.int32 if out.dtype == np.uint8 else _F32
+    smp = out[np.stack([k - 1, kp + 1, kp, km - 1, km, km, km]),
+              np.stack([l - 1, lm, lm, lm, lp + 1, lm, lm - 1])].astype(wide)
+    own, down, mid_v, up, right, mid_h, left = smp
+    a_d, a_u = np.abs(down - mid_v).astype(_F32), np.abs(mid_v - up).astype(_F32)
+    a_r, a_l = np.abs(right - mid_h).astype(_F32), np.abs(mid_h - left).astype(_F32)
+    gx = np.where(d_in & u_in, a_d + a_u, np.where(d_in, a_d * _F32(2),
+                                                   np.where(u_in, a_u * _F32(2), _F32(0))))
+    gy = np.where(r_in & l_in, a_r + a_l, np.where(r_in, a_r * _F32(2),
+                                                   np.where(l_in, a_l * _F32(2), _F32(0))))
+    gx = -gx
+    dot = rx * gx + ry * gy
+    len_g = gx * gx + gy * gy
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cosine = np.abs(dot / np.sqrt(disc.len2[ok, None] * len_g))
+    direction = np.where(np.abs(dot) <= 0.01, _F32(0.000001), cosine).astype(_F32)
+    w = disc.dst_ns[ok, None] * direction
+    s = np.concatenate([np.full((1, w.shape[1]), 1e-20, _F32), w]).cumsum(axis=0, dtype=_F32)[-1]
+    ia = (w * own.astype(_F32)).cumsum(axis=0, dtype=_F32)[-1]
+    mean = ia.astype(np.float64) / s.astype(np.float64)
+    if out.dtype == np.uint8:
+        out[i - 1, j - 1] = np.clip(np.rint(mean), 0, 255).astype(np.uint8)
+    else:
+        out[i - 1, j - 1] = mean.astype(out.dtype)
+
+
+def inpaint_ns(img: np.ndarray, mask: np.ndarray, radius: float = 3) -> np.ndarray:
+    """``cv2.inpaint(img, mask, radius, cv2.INPAINT_NS)``: (H, W, C) or (H,
+    W) uint8, or (H, W) float32, with the pixels where ``mask`` is nonzero
+    filled; every other pixel is returned as it was."""
+    out, squeeze, rng, f, t, band = _fmm_start(img, mask, radius)
+    if out.dtype not in (np.uint8, np.float32):
+        raise TypeError(f"inpaint_ns takes uint8 or float32 images, not {out.dtype}")
+    disc = _Disc(rng)
+    _march_inside(f, t, _Queue(band), lambda i, j: _ns_pixel(f, out, i, j, disc))
     return out[..., 0] if squeeze else out

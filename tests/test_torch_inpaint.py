@@ -4,7 +4,15 @@
 radius, cv2.INPAINT_TELEA)`` on blocks, scattered single pixels, holes on
 the image border and thin bands, one and three channels, radii 1-5: every
 pixel identical, inside the holes as outside (the bound measured is 0
-levels). ``perception/diffusion.py::inpaint`` against the JAX package's
+levels). ``inpaint_ns`` against ``cv2.inpaint(..., cv2.INPAINT_NS)`` on the
+same mask families and radii 1-5: uint8 with one and three channels
+identical (no tie was met: OpenCV's mean is an f64 division of f32 sums,
+which the port repeats in the same order, and both round half to even), and
+float32 single-channel images (what ``grasp.patch_up_depth`` passes, at
+depth, 8-bit and wide value ranges) identical too, tolerance 0, NaN samples
+included: OpenCV reads the column to the right of a sample in the first
+column for its isophote, a hole pixel there spreads its NaN, and the port
+reads the same pixel. ``perception/diffusion.py::inpaint`` against the JAX package's
 ``inpaint`` with no checkpoint, which falls back on cv2's Telea; the
 engine's ``inpaint_images`` under ``inpaint_holes``.
 """
@@ -18,7 +26,7 @@ import torch
 
 from dream2real_tpu.perception import diffusion as jdiff
 from dream2real_tpu_torch.perception import diffusion as tdiff
-from dream2real_tpu_torch.perception.imgproc import inpaint_telea
+from dream2real_tpu_torch.perception.imgproc import inpaint_ns, inpaint_telea
 
 torch.set_num_threads(2)
 
@@ -62,6 +70,43 @@ def test_inpaint_telea_matches_opencv(kind, channels, radius):
     np.testing.assert_array_equal(got[~hole], src[~hole])  # outside: untouched
     np.testing.assert_array_equal(got[hole], want[hole])   # inside: OpenCV's fill
     assert hole.sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["blocks", "scatter", "border", "band"])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4, 5])
+def test_inpaint_ns_matches_opencv(kind, channels, radius):
+    rng = np.random.default_rng(zlib.crc32(f"ns{kind}{channels}{radius}".encode()))
+    h, w = 36, 48
+    img = _image(rng, h, w, channels)
+    mask = _mask(rng, h, w, kind)
+    src = img[..., 0] if channels == 1 else img
+    want = cv2.inpaint(src, mask, radius, cv2.INPAINT_NS)
+    got = inpaint_ns(src, mask, radius)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    hole = mask != 0
+    np.testing.assert_array_equal(got[~hole], src[~hole])
+    np.testing.assert_array_equal(got[hole], want[hole])
+    assert hole.sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["blocks", "scatter", "border", "band"])
+@pytest.mark.parametrize("scale", ["depth", "u8", "wide", "nan"])
+@pytest.mark.parametrize("radius", [1, 3, 5])
+def test_inpaint_ns_matches_opencv_f32(kind, scale, radius):
+    rng = np.random.default_rng(zlib.crc32(f"ns32{kind}{scale}{radius}".encode()))
+    h, w = 36, 48
+    img = _image(rng, h, w, 1)[..., 0].astype(np.float32)
+    img = {"depth": 0.4 + img / 255 * 1.2, "u8": img, "wide": (img - 100) * 37.3,
+           "nan": 0.4 + img / 255 * 1.2}[scale].astype(np.float32)
+    mask = _mask(rng, h, w, kind)
+    if scale == "nan":
+        img[mask != 0] = np.nan
+    want = cv2.inpaint(img, mask, radius, cv2.INPAINT_NS)
+    got = inpaint_ns(img, mask, radius)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)  # NaN where OpenCV's is NaN
+    assert np.isfinite(got[mask == 0]).all()
 
 
 def test_inpaint_matches_jax_without_a_checkpoint():

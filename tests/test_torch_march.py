@@ -214,3 +214,28 @@ def test_march_image_unswizzles_to_the_packed_weights(fields):
         want[:, :n] = m[k0 : k0 + rows, n0 : n0 + n]
         assert torch.equal(tile, want), (name, k0, n0)
     assert off * 2 == tmk.IMAGE_BYTES
+
+
+def test_march_plain_f64_witness(fields):
+    """march_plain(dtype=torch.float64), the witness phase 3 of chip_smoke.py
+    holds K1's flagged rays against: every operation in f64 with the same
+    bf16 weights and activation roundings. On the random field it stays
+    within K1's 5e-3 of the f32 plain version (1.4e-3 measured: a few bf16
+    roundings of activations flip, as between K1 and the plain version), its
+    outputs are f64, and the default stays the f32 version bit for bit."""
+    _, field = fields
+    st = _settings(20, trender)
+    origins = torch.from_numpy(np.tile(ORIGIN, (256, 1)))
+    d = torch.from_numpy(_rays(256, LO, HI, 31))
+    t0, t1 = tmk.march_ranges(origins[:1], d[None], (LO, HI), st)
+    packed = tmk.pack_params(field)
+    box = torch.cat([packed.field_box, torch.tensor(LO), torch.tensor(HI)])
+    args = (origins, d, t0, t1, box, packed.w, packed.b, 20, st.min_transmittance, True)
+    f32 = tmk.march_plain(*args)
+    explicit = tmk.march_plain(*args, dtype=torch.float32)
+    f64 = tmk.march_plain(*args, dtype=torch.float64)
+    for a, b, c in zip(f32, explicit, f64):
+        assert a.dtype == torch.float32 and c.dtype == torch.float64
+        assert torch.equal(a, b)
+        assert float((a.double() - c).abs().max()) < 5e-3
+    assert float(f64[1].max()) > 0.1  # the rays see density
