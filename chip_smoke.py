@@ -58,7 +58,9 @@ Phases (any failure raises; the exit code is then nonzero):
                 two fresh 20-step runs from one seed bit-identical; a 20-step
                 run with D2R_FUSED_SAMPLER=0, which launches K8; five steps
                 under the profiler: the device time a step, by kernel
-  P physics     on phase T's scan (36 x 336^2): TaskModel.create_lazy_phys_mods
+  P physics     (while phase 1's nvcc runs: it launches no kernel of the
+                port) on phase T's scan (36 x 336^2, rendered again and held
+                against T's depths after T): TaskModel.create_lazy_phys_mods
                 over the shopping configs' bounds at 4 mm (two 200 x 450 x
                 309 grids; fusion, host mesh extraction and the whole call
                 timed; the cache replayed with identical handles);
@@ -159,6 +161,21 @@ Phases (any failure raises; the exit code is then nonzero):
                 to the cap of 65,536): K1, K2 and K4 launched in each, every
                 score finite, the best pose a (scored) grid pose, valid
                 poses found, the keep fractions 0.375 and 0.25
+  M mesh        (after phase 5) four shards that repeat the card, the port's
+                stand-in for four cards: torch.cuda.device_count() and
+                auto_mesh() (None on one card; phase 5's _fused_score took
+                mesh_devices 1); experiments/sharded_slab_prodshape.compare
+                on phase 3's 512 poses (ViT-L/14-336, clip_batch 32, crop
+                128): scores bit-identical to mesh=None, poses/s both ways;
+                _fused_score with save_renders under D2R_MESH=0 and under
+                the auto mesh patched to the shards: mesh_devices, scores
+                bit for bit, every PNG identical and in order; phase P's
+                shelf grid through make_unsupcol_check on the shards: masks
+                identical; one step of the selftest configuration on the
+                kernel path, sharded against unsharded over the same rays
+                and draws: the loss, max |diff| / scale and the least cosine
+                of the gradients (>= 0.9999), K5-K7 once a shard. With
+                several cards, the scoring and the check again over them
   X extrinsics  experiments/extr_grad_ab.py at 5 deg / 30 mm for X_STEPS
                 steps, the fused arm (K5-K7 every step, K7 with ray
                 gradients) and the plain autograd arm (no training kernel):
@@ -351,10 +368,11 @@ def masks_against_cpu(check_cpu, pose_batch, mask_dev) -> tuple[int, float]:
     return len(differ), gap
 
 
-def physics_phase(dev, smi, depths=None, views=36, res=336) -> dict:
+def physics_phase(dev, smi, views=36, res=336) -> dict:
     """Phase P on phase T's scan (the synth scene at res^2, `views` orbit
-    views; `depths` its depths on the card, re-rendered when None). ->
-    {"bg", "fg", "init"}: the physics models phase 5's check is built from."""
+    views, rendered here). -> {"bg", "fg", "init"}: the physics models
+    phase 5's check is built from; the shelf grid and its mask, phase M's;
+    "depths", the scan's, which main holds against phase T's."""
     from dream2real_tpu_torch.data import synth
     from dream2real_tpu_torch.experiments import physics_oracle
     from dream2real_tpu_torch.physics import models as pm
@@ -383,8 +401,6 @@ def physics_phase(dev, smi, depths=None, views=36, res=336) -> dict:
     cams = synth.orbit_poses(scene.centre, views, radius=0.5, height=0.4)
     rendered = [synth.render_scene(scene, pose, K, res, res) for pose in cams]
     scan_depths = torch.as_tensor(np.stack([r[1] for r in rendered]), device=dev)
-    if depths is not None and not torch.equal(depths, scan_depths):
-        raise AssertionError("phase P: the scan's depths are not phase T's")
 
     class Scan:
         """A duck-typed SceneModel: phase T's scan with its instance ids
@@ -542,7 +558,8 @@ def physics_phase(dev, smi, depths=None, views=36, res=336) -> dict:
         f"beyond the structural band above the table {band['agreement']} over n = {band['n']}")
     physics_oracle.check_agreement(out4, min_n=100)
     log(f"  phase P took {time.perf_counter() - t_p:.1f} s of wall")
-    return {"bg": bg, "fg": fg, "init": inits[1]}
+    return {"bg": bg, "fg": fg, "init": inits[1], "centre": scene.centre, "shelf_grid": grid3,
+            "shelf_mask": mask3, "shelf_seconds": t3, "depths": scan_depths}
 
 
 # The README's scan and the demo's run (phase E).
@@ -1232,6 +1249,142 @@ def extrinsics_phase(dev, smi, counters) -> None:
             raise AssertionError(f"X {name}: rotation {init['rot_deg']} -> {arm['rot_deg']}, "
                                  f"anchors {arm['anchor_rot_deg']}")
 
+# Phase M: the mesh's shards. Four shards that repeat the one card stand in
+# for four cards (the port's counterpart of XLA's virtual devices).
+MESH_SHARDS = 4
+MESH_MIN_COSINE = 0.9999
+
+
+def mesh_phase(dev, smi, ctx) -> None:
+    """Phase M on phase 3's workload, phase 5's scorer, phase P's shelf grid
+    and phase T's selftest configuration: the auto mesh; the scores of 512
+    poses on MESH_SHARDS shards of the card against one device, bit for bit,
+    and the grid scorer's scores and PNGs under a patched auto mesh; the
+    shelf check's masks on the shards; one training step on the shards
+    against one unsharded step over the same rays and draws. Where the
+    machine has several cards, the scoring and the check again over them."""
+    from dream2real_tpu_torch import scoring
+    from dream2real_tpu_torch.cli.selftest import SETTINGS
+    from dream2real_tpu_torch.clip.tokenizer import hash_tokenize
+    from dream2real_tpu_torch.experiments import sharded_slab_prodshape as ssp
+    from dream2real_tpu_torch.nerf import train_kernel as tk
+    from dream2real_tpu_torch.nerf.trainer import init_train_state, make_train_chunk
+    from dream2real_tpu_torch.parallel import mesh as pmesh
+    from dream2real_tpu_torch.physics.collision import make_unsupcol_check
+    from dream2real_tpu_torch.utils.png import read_png
+
+    t_m = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    auto = pmesh.auto_mesh()
+    log(f"  M1 torch.cuda.device_count() {n_cards}; auto_mesh() {auto}; phase 5's last "
+        f"_fused_score: mesh_devices {ctx['info5']['mesh_devices']}")
+    if n_cards == 1 and (auto is not None or ctx["info5"]["mesh_devices"] != 1):
+        raise AssertionError("M1: one card, yet a mesh was taken")
+    shards = pmesh.data_mesh(devices=[dev] * MESH_SHARDS)
+    meshes = [("shards of the card", shards)]
+    if n_cards > 1:
+        meshes.append(("cards", pmesh.data_mesh(min(n_cards, MESH_SHARDS))))
+
+    # M2: the main path's 512 poses, one device against the shards.
+    for label, mesh in meshes:
+        out = ssp.compare(ctx["make_args"], ctx["make_kwargs"], ctx["score_args"], mesh, reps=2)
+        log(f"  M2 make_imagine_and_score, {out['n_poses']} poses on {mesh.size} {label} "
+            f"{out['mesh']}: bit-identical {out['bit_identical']} (max |diff| "
+            f"{out['max_abs_diff']:.3e}); {out['poses_per_s_sharded']:.2f} poses/s sharded, "
+            f"{out['poses_per_s_single']:.2f} one device ({smi})")
+        if not (out["bit_identical"] and out["scores_finite"]):
+            raise AssertionError(f"M2: sharded scores differ from one device's: {out}")
+
+    # The grid scorer with saved renders, D2R_MESH=0 against the auto mesh
+    # patched to the shards for this block only.
+    renderer, root = ctx["renderer"], ctx["out_dir"]
+    args = (renderer, ctx["scorer"], hash_tokenize, ctx["task"], ctx["grid"], ctx["cams"][:1],
+            ctx["gt_depth"][None], ctx["task"].movable_masks, ctx["task"].movable_obj.pose, False)
+    runs = {}
+    for tag, env, mesh in (("one", "0", None), ("mesh", "1", shards)):
+        renderer.out_render_path = os.path.join(root, f"cb_{tag}")
+        with mock.patch.dict(os.environ, {"D2R_MESH": env}), \
+                mock.patch.object(pmesh, "auto_mesh", lambda m=mesh: m):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = scoring._fused_score(*args, save_renders=True)
+            wall = time.perf_counter() - t0
+        info = dict(scoring.LAST_RUN_INFO)
+        runs[tag] = (scores, info)
+        log(f"  M2 _fused_score with save_renders, D2R_MESH={env}: mesh_devices "
+            f"{info['mesh_devices']}, {info['n_slabs']} slab(s) of {info['slab']}, {wall:.2f} s "
+            f"= {len(scores) / wall:.1f} poses/s")
+    if (runs["one"][1]["mesh_devices"], runs["mesh"][1]["mesh_devices"]) != (1, MESH_SHARDS):
+        raise AssertionError(f"M2: mesh_devices {runs['one'][1]} / {runs['mesh'][1]}")
+    if not np.array_equal(runs["one"][0], runs["mesh"][0]):
+        raise AssertionError("M2: the grid scorer's scores differ on the mesh")
+    names = [f"cb_rgb_{i:04d}.png" for i in range(len(ctx["grid"]))]
+    for tag in ("one", "mesh"):
+        if sorted(os.listdir(os.path.join(root, f"cb_{tag}"))) != names:
+            raise AssertionError(f"M2: cb_{tag} does not hold the {len(names)} PNGs in order")
+    differ = [n for n in names if not np.array_equal(read_png(os.path.join(root, "cb_one", n)),
+                                                      read_png(os.path.join(root, "cb_mesh", n)))]
+    log(f"  M2 scores bit-identical; {len(names)} PNGs each, {len(differ)} differ")
+    if differ:
+        raise AssertionError(f"M2: {len(differ)} PNGs differ on the mesh, the first {differ[0]}")
+
+    # M3: the shelf grid's check on the shards.
+    phys = ctx["phys"]
+    for label, mesh in meshes:
+        check = make_unsupcol_check(phys["bg"].tsdf, phys["fg"].points, phys["init"],
+                                    phys["centre"], P3_RES, device=dev,
+                                    pose_sharding=pmesh.pose_sharding(mesh))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mask = check(phys["shelf_grid"]).cpu().numpy()
+        t3 = time.perf_counter() - t0
+        same = bool(np.array_equal(mask, phys["shelf_mask"]))
+        log(f"  M3 make_unsupcol_check over {P3_RES} ({len(mask):,} poses) on {mesh.size} "
+            f"{label}: {check.last_survivors:,} survivors in {check.last_chunks} chunks, "
+            f"{int(mask.sum()):,} valid, {t3:.3f} s (one device in phase P "
+            f"{phys['shelf_seconds']:.3f} s); masks identical {same}")
+        if not same:
+            raise AssertionError(f"M3: {int((mask != phys['shelf_mask']).sum())} masks differ")
+
+    # M4: one training step of the selftest configuration on the kernel
+    # path, sharded against unsharded: the same rays (drawn once), and the
+    # same draws (each shard's rows of the step's one draw, ShardDraws).
+    st = ctx["st"]
+    tc1 = dataclasses.replace(st["tc"], poll_steps=1)
+    steps = {}
+    for tag, sharding in (("unsharded", None), ("sharded", pmesh.pose_sharding(shards))):
+        state = init_train_state(st["cfg"], tc1, n_images=st["data"]["images_rgba"].shape[0],
+                                 device=dev)
+        with torch.no_grad():
+            for p, q in zip(state["field"].parameters(), ctx["field"].parameters()):
+                p.copy_(q)
+        chunk = make_train_chunk(st["cfg"], tc1, SETTINGS, ray_sharding=sharding, **st["data"])
+        for fn in (tk.density_sample, tk.train_fwd, tk.train_bwd):
+            fn.launches = 0
+        _, loss = chunk(state)
+        launches = [fn.launches for fn in (tk.density_sample, tk.train_fwd, tk.train_bwd)]
+        steps[tag] = (loss, {k: p.grad.detach().clone()
+                             for k, p in state["field"].named_parameters()}, launches)
+    (lu, gu, nu), (ls, gs, ns) = steps["unsharded"], steps["sharded"]
+    errs = {k: float((gs[k] - gu[k]).abs().max() / gu[k].abs().max().clamp_min(1e-30))
+            for k in gu}
+    coss = {k: float(torch.nn.functional.cosine_similarity(gs[k].flatten().double(),
+                                                           gu[k].flatten().double(), dim=0))
+            for k in gu}
+    worst = min(coss, key=coss.get)
+    log(f"  M4 one step, {tc1.batch_rays} rays on {MESH_SHARDS} shards against one device: loss "
+        f"{ls:.7f} / {lu:.7f}; max |diff| / scale {max(errs.values()):.3e} "
+        f"({max(errs, key=errs.get)}); least cosine {coss[worst]:.8f} ({worst}); K5, K6, K7 "
+        f"launches {ns} sharded, {nu} unsharded")
+    if nu != [1, 1, 1] or ns != [MESH_SHARDS] * 3:
+        raise AssertionError(f"M4: the kernel path did not run as expected: {nu} / {ns}")
+    if coss[worst] < MESH_MIN_COSINE or abs(ls - lu) > 1e-4 * abs(lu):
+        raise AssertionError(f"M4: sharded step off: cosine {coss[worst]}, loss {ls} / {lu}")
+    if n_cards == 1:
+        log("  M5 one card: the scoring and the check over physically distinct cards wait for "
+            "a machine with several")
+    log(f"  phase M took {time.perf_counter() - t_m:.1f} s of wall")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1270,9 +1423,17 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
 
     # ------------------------------------------------------------- 1 build
-    phase("1 build")
-    secs = build.build_all()
-    log(f"built {', '.join(build.SOURCES)} in {secs:.2f} s")
+    # Phase P launches no kernel of the port, so it runs while nvcc builds.
+    phase("1 build (one nvcc a source, all at once; phase P runs meanwhile)")
+    t_build = time.perf_counter()
+    started = build.start_build()
+
+    # ------------------------------------------------------------- P physics
+    phase("P physics (create_lazy_phys_mods, make_unsupcol_check, the oracle) on phase T's scan")
+    phys = physics_phase(dev, smi)
+    build.finish_build(started)
+    secs = time.perf_counter() - t_build
+    log(f"built {', '.join(build.SOURCES)} in {secs:.2f} s of wall, phase P inside it")
     ptxas = {src: ptxas_report(build.build_log(src)) for src in build.SOURCES}
     for src in build.SOURCES:
         for kname, (regs, st_b, ld_b) in ptxas[src].items():
@@ -2164,9 +2325,8 @@ def main() -> int:
                              else train_launches)[k["name"]]
     field = field_t
 
-    # ------------------------------------------------------------- P physics
-    phase("P physics (create_lazy_phys_mods, make_unsupcol_check, the oracle) on phase T's scan")
-    phys = physics_phase(dev, smi, depths=st["data"]["depths"])
+    if not torch.equal(phys["depths"], st["data"]["depths"]):
+        raise AssertionError("phase P: its scan's depths are not phase T's")
 
     # -------------------------------------------------------- 3 main path
     phase("3 main path (bench.py workload, 512 poses)")
@@ -2630,6 +2790,17 @@ def main() -> int:
     if not same5 and gap_s > d_logit:
         raise AssertionError(f"grid scorer with physics: scores at the valid poses move by "
                              f"{gap_s} (phase 4's logit gap {d_logit})")
+
+    # ------------------------------------------------------------ M mesh
+    phase(f"M mesh ({MESH_SHARDS} shards: scoring, the grid scorer, the shelf check, a "
+          "training step)")
+    mesh_phase(dev, smi, {
+        "info5": info_p, "make_args": (ngp_cfg, clip_cfg, settings, dirs_cam),
+        "make_kwargs": dict(n_norm_captions=2, clip_batch=clip_batch, obj_aabb=obj_aabb,
+                            fg_crop=crop, intrinsics=K),
+        "score_args": (*args3, poses), "renderer": renderer, "scorer": scorer,
+        "task": TaskModel, "grid": grid5, "cams": cams, "gt_depth": gt_depth,
+        "out_dir": out_dir, "phys": phys, "st": st, "field": field_t})
     shutil.rmtree(out_dir, ignore_errors=True)
 
     # ------------------------------------------------------------ E engine

@@ -87,13 +87,23 @@ def _finish(name: str, out: Path, pending) -> None:
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial .so
 
 
+def start_build() -> dict:
+    """Start one nvcc for every kernel source not yet built, all at once,
+    and return without waiting; ``finish_build`` waits for them."""
+    return {name: _start(name) for name in SOURCES}
+
+
+def finish_build(started: dict) -> None:
+    """Wait for the compilers ``start_build`` started; raise on a failure."""
+    for name, (out, pending) in started.items():
+        _finish(name, out, pending)
+
+
 def build_all() -> float:
     """Compile every kernel source in parallel (one nvcc each); returns the
     wall seconds. Already-built libraries are reused."""
     t0 = time.perf_counter()
-    started = {name: _start(name) for name in SOURCES}
-    for name, (out, pending) in started.items():
-        _finish(name, out, pending)
+    finish_build(start_build())
     return time.perf_counter() - t0
 
 

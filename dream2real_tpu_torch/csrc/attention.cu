@@ -675,23 +675,11 @@ __global__ void __launch_bounds__(kFThreads, 1)
   }
 }
 
-// Raises a kernel's dynamic shared memory limit to `bytes` once per device
-// (`*configured` remembers the device).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int* configured) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev == *configured) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *configured = dev;
-  return err;
-}
-
 template <int MODE>
 int launch_attn(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* out,
                 int B, int H, int T, const Strides& st, float scale, int grid_x,
                 cudaStream_t stream) {
-  static int configured = -1;  // the device whose limit was raised last, per instantiation
+  static std::atomic<unsigned long long> configured{0};  // per instantiation
   cudaError_t err = allow_smem(attn_fwd<MODE>, kAttnSmem, &configured);
   if (err != cudaSuccess) return int(err);
   attn_fwd<MODE><<<dim3(grid_x, H, B), kFThreads, kAttnSmem, stream>>>(
@@ -974,7 +962,7 @@ int launch_gemm(const void* a, const void* w, const void* bias, const void* resi
   const bf16* rp = static_cast<const bf16*>(resid);
   bf16* op = static_cast<bf16*>(out);
   constexpr int smem = kGStages * kGStage + 16 * kGStages;  // the ring and its barriers
-  static int configured = -1;
+  static std::atomic<unsigned long long> configured{0};
   cudaError_t err = allow_smem(gemm_tma<kEpi>, smem, &configured);
   if (err != cudaSuccess) return int(err);
   dim3 grid(N / kGN, (M + kGM - 1) / kGM);
@@ -1000,7 +988,7 @@ extern "C" int d2r_attention(const void* q, const void* k, const void* v, void* 
     int exponent = 0;
     if (grid_x * kQT < T || smem != kExactSmem || frexpf(scale, &exponent) != 0.5f)
       return int(cudaErrorInvalidValue);  // the kernel scales scores, exact for powers of two
-    static int configured = -1;
+    static std::atomic<unsigned long long> configured{0};
     cudaError_t err = allow_smem(attn_exact, smem, &configured);
     if (err != cudaSuccess) return int(err);
     attn_exact<<<dim3(grid_x, H, B), kAThreads, smem, cs>>>(

@@ -1,11 +1,15 @@
 // Inline-PTX parts of the Hopper kernels (attention.cu, train.cu): shared
 // memory addresses, mbarriers, bulk copies, wgmma descriptors and the wgmma
-// shapes both sources use. sm_90a only.
+// shapes both sources use; and the launchers' shared-memory opt-in (all
+// three sources). sm_90a only.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -96,6 +100,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Raises a kernel's dynamic shared-memory limit to `bytes` on the current
+// device, once a device: `done` holds one bit a device, set with an atomic
+// OR, so that launches that alternate between cards, or come from several
+// host threads, neither raise it again nor race. Raising it twice is
+// harmless, so two threads that both find the bit clear may both call.
+// Devices past the 64th raise it on every launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned long long>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done->load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && bit) done->fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace

@@ -400,15 +400,9 @@ extern "C" int d2r_march(const void* origins, const void* dirs, const void* t0, 
   if (rays_per_pose <= 0 || n_samples <= 0 || rpt <= 0 || spt <= 0 || rpt * spt > kTileRows ||
       spt > n_samples || steps != (n_samples + spt - 1) / spt || grid <= 0 || smem != kMarchSmem)
     return int(cudaErrorInvalidValue);
-  static int configured = -1;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<unsigned long long> configured{0};
+  cudaError_t err = allow_smem(march_rows, smem, &configured);
   if (err != cudaSuccess) return int(err);
-  if (dev != configured) {
-    err = cudaFuncSetAttribute(march_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return int(err);
-    configured = dev;
-  }
   MarchArgs a = {};
   a.origins = static_cast<const float*>(origins);
   a.dirs = static_cast<const float*>(dirs);

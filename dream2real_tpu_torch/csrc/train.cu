@@ -1205,18 +1205,6 @@ __global__ void __launch_bounds__(kRowThreads, 1) density_rows(const DensityArgs
   }
 }
 
-// Raises a kernel's dynamic shared memory limit to `bytes` once per device
-// (`*configured` remembers the device).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int* configured) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev == *configured) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *configured = dev;
-  return err;
-}
-
 // The row geometry train_kernel.py::train_geometry computes, checked.
 bool rows_ok(int n_rays, int S, int rpt, int spt, int steps) {
   return n_rays > 0 && S > 0 && rpt > 0 && spt > 0 && rpt * spt <= kTileRows &&
@@ -1226,7 +1214,7 @@ bool rows_ok(int n_rays, int S, int rpt, int spt, int steps) {
 
 template <bool kBwd>
 int launch_rows(const RowArgs& a, int groups, cudaStream_t st) {
-  static int configured = -1;
+  static std::atomic<unsigned long long> configured{0};
   cudaError_t err = allow_smem(train_rows<kBwd>, kRowSmem, &configured);
   if (err != cudaSuccess) return int(err);
   train_rows<kBwd><<<groups, kRowThreads, kRowSmem, st>>>(a);
@@ -1235,7 +1223,7 @@ int launch_rows(const RowArgs& a, int groups, cudaStream_t st) {
 
 int launch_dw(const unsigned char* scratch, int nrb, int parts, float* part, int first,
               cudaStream_t st) {
-  static int configured = -1;
+  static std::atomic<unsigned long long> configured{0};
   cudaError_t err = allow_smem(dw_gemm, kDwSmem, &configured);
   if (err != cudaSuccess) return int(err);
   dw_gemm<<<dim3(parts, kDwTiles), 256, kDwSmem, st>>>(scratch, nrb, parts, part, first);
@@ -1245,7 +1233,7 @@ int launch_dw(const unsigned char* scratch, int nrb, int parts, float* part, int
 
 template <bool kSample>
 int launch_density(const DensityArgs& a, int grid, cudaStream_t st) {
-  static int configured = -1;
+  static std::atomic<unsigned long long> configured{0};
   cudaError_t err = allow_smem(density_rows<kSample>, kDensitySmem, &configured);
   if (err != cudaSuccess) return int(err);
   density_rows<kSample><<<grid, kRowThreads, kDensitySmem, st>>>(a);

@@ -111,7 +111,8 @@ class ImaginationEngine:
         self.frame_decoder = None  # which codec decoded the scan's frames (data/loader.py)
         # Wall-clock seconds per stage; cli/demo.py prints the report.
         self.stage_timer = StageTimer()
-        self.segmentor = Segmentor(mask_generator=mask_generator, propagator=propagator)
+        self.segmentor = Segmentor(device=self.device, mask_generator=mask_generator,
+                                   propagator=propagator)
         self.caption = cfg.caption
         # Hole inpainting before segmentation and captioning (Telea's method;
         # perception/diffusion.py).
@@ -119,6 +120,7 @@ class ImaginationEngine:
         if cfg.caption:
             self.captioner = Captioner(
                 topdown=self.topdown,
+                device=self.device,
                 read_cache=self.use_cache_captions,
                 cache_path=os.path.join(self.data_dir, "captions.json"),
                 backend=caption_backend,

@@ -70,12 +70,13 @@ def synth_scan(n_views: int, radius: float, height: float, res: int = RES):
     return scene, K, cams.astype(np.float32), rgbs, depths, insts
 
 
-def train_field(cams, rgbs, depths, K, steps: int, dev, res: int = RES):
+def train_field(cams, rgbs, depths, K, steps: int, dev, res: int = RES, poll: int = 250):
     """The flagship field trained ``steps`` steps on the scan (8192 rays,
-    32 + 32 samples, depth supervision). -> (field, last chunk's loss)."""
+    32 + 32 samples, depth supervision) in chunks of ``poll`` steps. ->
+    (field, last chunk's loss)."""
     rgba = np.concatenate([np.stack(rgbs), np.full((len(cams), res, res, 1), 255, np.uint8)], -1)
     ngp_cfg = NGPConfig(**SELFTEST_AABB)
-    tc = TrainConfig(n_steps=steps, batch_rays=8192, poll_steps=min(250, steps),
+    tc = TrainConfig(n_steps=steps, batch_rays=8192, poll_steps=min(poll, steps),
                      dynamic_time_extension=False)
     state = init_train_state(ngp_cfg, tc, n_images=len(cams), device=dev)
     chunk = make_train_chunk(

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from dream2real_tpu_torch.device import BF16, F32, dot_bf16, dot_exact, resolve_device
+from dream2real_tpu_torch.device import BF16, F32, bf16_weight, dot_bf16, dot_exact, resolve_device
 from dream2real_tpu_torch.nerf.hashgrid import HashGridConfig, hash_encode, init_hash_table
 
 
@@ -200,7 +200,7 @@ def density_fn(field: NGPField, positions: torch.Tensor):
             if cfg.skip_layer and i == cfg.skip_layer:
                 h = torch.cat([h, enc0], dim=-1)
             w = getattr(field, f"trunk_w{i}")
-            b = getattr(field, f"trunk_b{i}").to(BF16).to(F32)
+            b = bf16_weight(getattr(field, f"trunk_b{i}"))
             h = dot_exact(h, w) + b  # f32 products and sums, one rounding below
             if i < cfg.mlp_depth - 1:
                 h = torch.relu(h)

@@ -7,7 +7,9 @@ on any device and differentiable: the background view of the imagine loop is
 rendered here, and training takes it with ``D2R_PALLAS_TRAIN=0`` (exact
 autograd, extrinsics gradients included). Without a generator the samples
 are deterministic midpoints (rendering); with one, the coarse samples are
-stratified-jittered and the fine ones drawn at random quantiles (training).
+stratified-jittered and the fine ones drawn at random quantiles (training);
+a shard of a sharded step passes its view of the step's draws
+(``parallel.mesh.ShardDraws``) in the generator's place.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from dream2real_tpu_torch.device import F32
 from dream2real_tpu_torch.nerf.model import NGPField, density_fn, field_fn
+from dream2real_tpu_torch.parallel.mesh import uniform
 
 
 class RenderSettings(NamedTuple):
@@ -62,7 +65,7 @@ def sample_pdf(ts: torch.Tensor, weights: torch.Tensor, n_samples: int,
         u = (torch.arange(n_samples, dtype=F32, device=ts.device) + 0.5) / n_samples
         u = u.expand(ts.shape[:-1] + (n_samples,))
     else:
-        u = torch.rand(ts.shape[:-1] + (n_samples,), generator=generator, device=ts.device)
+        u = uniform(generator, ts.shape[:-1] + (n_samples,), ts.device)
     below = (cdf[..., None, :] <= u[..., :, None]).to(F32)
     sel = below[..., :-1] * (1.0 - below[..., 1:])  # (..., n, S) one-hot bin
     sel[..., -1] += below[..., -1]  # u >= cdf[-1] falls in the last bin
@@ -122,7 +125,7 @@ def render_rays(
     nc = settings.n_coarse
     frac = (torch.arange(nc, dtype=F32, device=dirs.device) + 0.5) / nc
     if generator is not None:
-        jitter = torch.rand(origins.shape[:-1] + (nc,), generator=generator, device=dirs.device)
+        jitter = uniform(generator, origins.shape[:-1] + (nc,), dirs.device)
         frac = frac + (jitter - 0.5) / nc
     ts_c = t0[..., None] + (t1 - t0)[..., None] * frac
 

@@ -52,6 +52,7 @@ from dream2real_tpu_torch.device import BF16, F32, bf16_round, dot_exact
 from dream2real_tpu_torch.nerf.march_kernel import _fma, image_index, supports
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField, posenc_freqs, sh_encode_deg4
 from dream2real_tpu_torch.nerf.render import RenderSettings, ray_aabb, sample_pdf
+from dream2real_tpu_torch.parallel.mesh import uniform
 
 # Packed bf16 matrices, (K x N) row-major, in csrc/train.cu's order: the
 # forward ones, then the transposes the backward multiplies by.
@@ -754,14 +755,14 @@ def coarse_samples(cfg: NGPConfig, origins, dirs, settings: RenderSettings,
     nc = settings.n_coarse
     frac = (torch.arange(nc, dtype=F32, device=dirs.device) + 0.5) / nc
     if generator is not None:
-        jitter = torch.rand(origins.shape[0], nc, generator=generator, device=dirs.device)
+        jitter = uniform(generator, (origins.shape[0], nc), dirs.device)
         frac = frac + (jitter - 0.5) / nc
     return (t0[:, None] + (t1 - t0)[:, None] * frac).contiguous(), valid
 
 
 def exp_draws(n_rays: int, n_draw: int, generator: torch.Generator, device) -> torch.Tensor:
     """(n_rays, n_draw + 1) iid Exp(1) numbers, -log of U[1e-12, 1), K5's input."""
-    u = torch.rand(n_rays, n_draw + 1, generator=generator, device=device)
+    u = uniform(generator, (n_rays, n_draw + 1), device)
     return -torch.log(1e-12 + (1.0 - 1e-12) * u)
 
 

@@ -1,4 +1,4 @@
-"""NGP training loop (port of dream2real_tpu/nerf/trainer.py), single device.
+"""NGP training loop (port of dream2real_tpu/nerf/trainer.py).
 
 ``make_train_chunk`` builds ``train_chunk(state) -> (state, mean task loss)``,
 which runs ``poll_steps`` optimizer steps and waits for the device once, and
@@ -22,6 +22,19 @@ differentiable ``render_rays``. Randomness comes from the state's
 ``torch.Generator`` (seeded by ``TrainConfig.seed``); it draws other numbers
 than the reference's PRNG keys.
 
+With ``ray_sharding`` (``parallel.mesh.pose_sharding(mesh)``) the step is
+data-parallel over the mesh: the global batch is drawn once, shard i takes
+its contiguous rays and runs forward and backward on its device's replica
+of the field, and the gradients come back to the first device, summed in
+shard order and divided by the mesh size (``pmean`` with a fixed order);
+those of the bf16 weight casts join shard 0's backward before the cast
+rounds them, so they round once, as on one device (``backward_sharded``).
+The losses are the mean of the shards' means. The render's draws are each
+shard's rows of one draw over the whole batch (``parallel.mesh.ShardDraws``),
+so a sharded step sees the unsharded step's samples and a one-shard mesh is
+the unsharded step bit for bit. Both optimizers step once, on the first
+device, and the replicas take the new parameters at the next step.
+
 Optimizer: for the field, ``wd * p`` added to the gradient, then Adam (b1
 0.9, b2 0.99, eps 1e-8) on a cosine schedule down to 1% of ``lr``: the
 reference's ``add_decayed_weights`` + ``adam`` chain, which is what
@@ -31,6 +44,7 @@ extrinsics take Adam at ``ext_lr``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -38,12 +52,13 @@ import warnings
 
 import torch
 
-from dream2real_tpu_torch.device import F32, resolve_device
+from dream2real_tpu_torch.device import F32, WEIGHT_CAST_HOOK, resolve_device
 from dream2real_tpu_torch.nerf.model import NGPConfig, density_fn, init_ngp_params
 from dream2real_tpu_torch.nerf.render import RenderSettings, render_rays
 from dream2real_tpu_torch.nerf.train_kernel import render_rays_train, supports_training
 from dream2real_tpu_torch.ops.image import linear_to_srgb, srgb_to_linear
 from dream2real_tpu_torch.ops.se3 import make_pose, so3_exp
+from dream2real_tpu_torch.parallel.mesh import ShardDraws, run_shards
 
 
 @dataclasses.dataclass
@@ -125,12 +140,17 @@ def make_train_chunk(
     ray_sharding=None,
     fg_pixels: torch.Tensor | None = None,   # (M, 3) int64 [img, y, x] opaque pixels
 ):
-    """Build train_chunk(state) -> (state, mean task loss over the chunk)."""
-    if ray_sharding is not None:
-        raise NotImplementedError(
-            "ray_sharding: the port trains on one device (multi-device training is queued)")
+    """Build train_chunk(state) -> (state, mean task loss over the chunk).
+    ``ray_sharding``: shard each step's rays over its mesh (``batch_rays``
+    must divide by the mesh size), the first device holding the state."""
     n_img, h, w = images_rgba.shape[:3]
     dev = images_rgba.device
+    mesh = None if ray_sharding is None else ray_sharding.mesh
+    if mesh is not None:
+        if tc.batch_rays % mesh.size:
+            raise ValueError(f"batch_rays {tc.batch_rays} does not divide over {mesh.size} shards")
+        if mesh.lead != dev:
+            raise ValueError(f"the mesh leads from {mesh.lead}, the training data is on {dev}")
     use_kernel = use_train_kernel(cfg)
     if tc.optimize_extrinsics and use_kernel:
         warnings.warn(
@@ -139,6 +159,11 @@ def make_train_chunk(
             "extrinsics gradients.",
             stacklevel=2,
         )
+    # The images, poses, pixel directions and depths on every device.
+    data = {dev: (images_rgba, init_poses, dirs_cam, depths)}
+    for d in ({} if mesh is None else mesh.distinct()):
+        if d not in data:
+            data[d] = tuple(None if t is None else t.to(d) for t in data[dev])
 
     def sample_batch(gen):
         """-> (img_idx, py, px, bg, u_free): the step's rays, background
@@ -157,11 +182,14 @@ def make_train_chunk(
         u_free = torch.rand(tc.batch_rays, tc.freespace_samples, generator=gen, device=dev)
         return img_idx, py, px, bg, u_free
 
-    def loss_fn(state, batch, render_generator):
+    def loss_fn(state, batch, render_generator, on=None):
         """(loss to differentiate, task loss to report) of one batch; the
-        render draws its samples from render_generator (None: midpoints)."""
+        render draws its samples from render_generator (None: midpoints).
+        ``on``: the device whose copy of the data the batch indexes (the
+        state's device by default)."""
+        images, poses_init, dirs_px, depth_maps = data[dev if on is None else on]
         img_idx, py, px, bg, u_free = batch
-        target = images_rgba[img_idx, py, px].to(F32) / 255.0
+        target = images[img_idx, py, px].to(F32) / 255.0
         target_rgb = srgb_to_linear(target[:, :3])
         target_a = target[:, 3]
 
@@ -171,12 +199,12 @@ def make_train_chunk(
             # differentiable in every pose.
             gate = float(state["step"] >= tc.ext_start_step)
             poses = optimized_poses(state["ext_rot"] * gate, state["ext_trans"] * gate,
-                                    init_poses)
+                                    poses_init)
             sel = torch.nn.functional.one_hot(img_idx, n_img).to(F32)
             T = torch.einsum("bn,nij->bij", sel, poses)
         else:
-            T = init_poses[img_idx]
-        d_cam = dirs_cam[py, px]
+            T = poses_init[img_idx]
+        d_cam = dirs_px[py, px]
         dirs = torch.einsum("bij,bj->bi", T[:, :3, :3], d_cam)
         origins = T[:, :3, 3]
 
@@ -191,17 +219,17 @@ def make_train_chunk(
         tgt = target_rgb * target_a[:, None] + bg * (1.0 - target_a[:, None])
         err = linear_to_srgb(torch.clamp(pred, 0.0, 1.0)) - linear_to_srgb(tgt)
         loss = _huber(err, 0.1).mean() * 2.0
-        if depths is not None and tc.depth_weight > 0:
-            gt_d = depths[img_idx, py, px]
+        if depth_maps is not None and tc.depth_weight > 0:
+            gt_d = depth_maps[img_idx, py, px]
             mask = (gt_d > 0) & (target_a > 0.5)
             d_err = torch.where(mask, out["depth"] - gt_d, torch.zeros_like(gt_d))
             loss = loss + tc.depth_weight * _huber(d_err, 0.05).mean()
         task_loss = loss.detach()
-        if depths is not None and fg_pixels is not None and tc.freespace_weight > 0:
+        if depth_maps is not None and fg_pixels is not None and tc.freespace_weight > 0:
             # Carving shapes the field only: the ray geometry is detached, or
             # the term would pull the cameras off density.
             o_sg, d_sg = origins.detach(), dirs.detach()
-            gt_free = depths[img_idx, py, px]
+            gt_free = depth_maps[img_idx, py, px]
             t_hi = torch.clamp(gt_free * 0.9, min=settings.near)
             t_free = settings.near + u_free * (t_hi - settings.near)[:, None]
             pos_f = o_sg[:, None, :] + d_sg[:, None, :] * t_free[..., None]
@@ -212,13 +240,100 @@ def make_train_chunk(
             loss = loss + tc.freespace_weight * (occ * fmask).mean()
         return loss, task_loss
 
+    # The field and the extrinsics on the devices after the first, made at
+    # the first sharded step and given the state's values at every step.
+    replicas: dict = {}
+
+    def shard_state(state, d):
+        if d == dev:
+            return state
+        trained = [state["field"], state["ext_rot"], state["ext_trans"]]
+        if d not in replicas:
+            replicas[d] = [copy.deepcopy(m).to(d) if isinstance(m, torch.nn.Module)
+                           else m.detach().to(d).requires_grad_(True) for m in trained]
+        field, ext_rot, ext_trans = replicas[d]
+        with torch.no_grad():
+            for rp, p in zip(_tensors_of([field, ext_rot, ext_trans]), _tensors_of(trained)):
+                rp.copy_(p, non_blocking=True)
+        return {"field": field, "ext_rot": ext_rot, "ext_trans": ext_trans, "step": state["step"]}
+
+    def _trained(state):
+        """The tensors a step differentiates: the field's parameters, and
+        the extrinsics when they are optimised."""
+        ext = [state["ext_rot"], state["ext_trans"]] if tc.optimize_extrinsics else []
+        return list(state["field"].parameters()) + ext
+
+    def backward_sharded(state, batch, gen):
+        """The sharded step's gradients, left in the state's .grad; -> the
+        mean of the shards' task losses.
+
+        Shards 1.. run forward and backward on their devices, their weight
+        casts cut into leaves (``device.bf16_weight``), and return the
+        gradients of their local means at those leaves and at the trained
+        tensors. Shard 0 builds its graph on the first device with each
+        weight cast passing through ``_AddShards``; its backward adds the
+        other shards' gradients (summed in shard order) at each cast before
+        the cast rounds the total to bf16 once, and at the trained tensors
+        after. Every term is divided by the mesh size first: the gradient
+        of the mean of the local means, as one device takes it. A one-shard
+        mesh is the unsharded step bit for bit."""
+        n = mesh.size
+        draws = ShardDraws(gen, tc.batch_rays, n)
+        slots: list = []
+
+        def join(w, out):  # shard 0: the k-th cast waits for the others' gradients
+            slots.append({})
+            return _AddShards.apply(out, slots[-1])
+
+        def shard(i, d):
+            lo, hi = draws.bounds[i]
+            part = tuple(t[lo:hi].to(d, non_blocking=True) for t in batch)
+            view = shard_state(state, d)
+            leaves = []
+
+            def cut(w, out):
+                leaves.append(out.detach().requires_grad_(True))
+                return leaves[-1]
+
+            WEIGHT_CAST_HOOK.fn = join if i == 0 else cut
+            try:
+                loss, task_loss = loss_fn(view, part, draws.shard(i), on=d)
+            finally:
+                WEIGHT_CAST_HOOK.fn = None
+            if i == 0:
+                return loss, task_loss
+            trained = _trained(view)
+            grads = torch.autograd.grad(loss, leaves + trained, allow_unused=True)
+            return task_loss, grads[: len(leaves)], grads[len(leaves):]
+
+        outs = run_shards(mesh, shard)
+        loss0, task_loss = outs[0]
+        for out in outs[1:]:
+            task_loss = task_loss + out[0]
+            if len(out[1]) != len(slots):
+                raise RuntimeError(f"shard {len(slots)} weight casts against {len(out[1])}")
+        for k, slot in enumerate(slots):
+            slot["grad"] = _shard_sum([out[1][k] for out in outs[1:]], n)
+            if dev.type == "cuda":
+                slot["ready"] = torch.cuda.current_stream(dev).record_event()
+        (loss0 / n).backward()
+        for j, p in enumerate(_trained(state)):
+            extra = _shard_sum([out[2][j] for out in outs[1:]], n)
+            if extra is not None:
+                p.grad = extra if p.grad is None else p.grad + extra
+        return task_loss / n
+
     def one_step(state):
         opt_f, opt_e = state["opt_field"], state["opt_ext"]
         opt_f.zero_grad(set_to_none=True)
         opt_e.zero_grad(set_to_none=True)
         gen = state["generator"]
-        loss, task_loss = loss_fn(state, sample_batch(gen), gen)
-        loss.backward()
+        batch = sample_batch(gen)
+        if mesh is None:
+            loss, task_loss = loss_fn(state, batch, gen)
+            loss.backward()
+        else:
+            task_loss = backward_sharded(state, batch, gen)
         for group in opt_f.param_groups:
             group["lr"] = cosine_lr(tc, state["step"])
         opt_f.step()
@@ -235,6 +350,46 @@ def make_train_chunk(
 
     train_chunk.loss_fn = loss_fn  # one batch's loss, for tests that inject a batch
     return train_chunk
+
+
+class _AddShards(torch.autograd.Function):
+    """Identity forward; backward adds the other shards' gradient held in
+    ``slot`` (filled after the graph is built, ordered on the card by its
+    event) to the one arriving."""
+
+    @staticmethod
+    def forward(ctx, x, slot):
+        ctx.slot = slot
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        extra = ctx.slot.get("grad")
+        if extra is None:
+            return g, None
+        if "ready" in ctx.slot:
+            stream = torch.cuda.current_stream(g.device)
+            stream.wait_event(ctx.slot["ready"])
+            extra.record_stream(stream)
+        return g + extra.to(g.dtype), None
+
+
+def _shard_sum(grads, n: int):
+    """The shards' gradients summed in shard order and divided by ``n``, or
+    None when no shard has one."""
+    total = None
+    for g in grads:
+        if g is not None:
+            total = g if total is None else total + g
+    return None if total is None else total / n
+
+
+def _tensors_of(items) -> list:
+    """The parameters of each module and each plain tensor, in order."""
+    out = []
+    for m in items:
+        out.extend(m.parameters() if isinstance(m, torch.nn.Module) else [m])
+    return out
 
 
 def train_with_governor(train_chunk, state, tc: TrainConfig, log_fn=None):

@@ -20,13 +20,17 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from dream2real_tpu_torch.device import resolve_device
 from dream2real_tpu_torch.perception import imgproc
 from dream2real_tpu_torch.perception.segmentation import get_thumbnail, mask_touches_edge
 
 
-def blip2_backend(path: Optional[str] = None, device: str = "cpu", batch_size: int = 200):
-    """BLIP-2 captioning from a local checkpoint (D2R_BLIP2_PATH); the import
-    raises where transformers is absent."""
+def blip2_backend(path: Optional[str] = None, device=None, batch_size: int = 200):
+    """BLIP-2 captioning from a local checkpoint (D2R_BLIP2_PATH) on
+    ``device`` (CUDA unless the caller names another; raises without a GPU
+    before anything is loaded); the import raises where transformers is
+    absent."""
+    device = resolve_device(device)
     import torch
     from transformers import Blip2ForConditionalGeneration, Blip2Processor
 
@@ -52,13 +56,14 @@ class Captioner:
     def __init__(
         self,
         topdown: bool,
-        device: str = "cpu",
+        device=None,
         read_cache: bool = False,
         cache_path: Optional[str] = None,
         backend: Optional[Callable] = None,
         seed: int = 0,
     ):
         self.topdown = topdown
+        self.device = device  # where the default backend loads BLIP-2 (None: CUDA)
         self.read_cache = read_cache
         self.cache_path = cache_path
         self.backend = backend
@@ -67,7 +72,7 @@ class Captioner:
     def caption(self, imgs: Sequence[np.ndarray]) -> list[str]:
         backend = self.backend
         if backend is None:
-            backend = blip2_backend()  # raises without a local checkpoint
+            backend = blip2_backend(device=self.device)  # raises without a local checkpoint
         return backend(imgs)
 
     def caption_objs(

@@ -103,8 +103,8 @@ class Segmentor:
     ``segment`` / ``segment_associate``: cached XMem masks, then a synthetic
     scan's masks/, then the injected backends."""
 
-    def __init__(self, device: str = "cpu", mask_generator=None, propagator=None):
-        self.device = device
+    def __init__(self, device=None, mask_generator=None, propagator=None):
+        self.device = device  # for the live backends' models (None: CUDA)
         self.mask_generator = mask_generator
         self.propagator = propagator
 

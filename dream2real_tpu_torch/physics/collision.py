@@ -15,7 +15,11 @@ background TSDF's solid voxels, sampled trilinearly:
   pose is below table level (tested on the UN-lowered z, as the reference);
 - stability: all four 4 cm lateral shifts of the lowered pose must still hit.
 
-One device. Arithmetic is elementwise f32 in a fixed order (the pose products
+With a mesh (by default ``parallel.mesh.auto_mesh()``) every chunk of
+survivors splits into contiguous shards, one a mesh device, each tested
+against that device's copy of the occupancy grid; the masks gather back in
+order. Each pose's tests are its own, so the masks are the single-device
+masks exactly. Arithmetic is elementwise f32 in a fixed order (the pose products
 too, written out rather than left to a GEMM), so that the card and the CPU
 give the same bits; a constant divisor is applied as a multiplication by its
 f32 reciprocal, as XLA compiles the JAX package's division by a constant.
@@ -23,6 +27,7 @@ f32 reciprocal, as XLA compiles the JAX package's division by a constant.
 
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
@@ -30,6 +35,7 @@ import torch
 
 from dream2real_tpu_torch.device import F32, resolve_device
 from dream2real_tpu_torch.ops.se3 import pose_inverse
+from dream2real_tpu_torch.parallel import mesh as pmesh
 from dream2real_tpu_torch.physics.tsdf import TSDFGrid
 
 GRAVITY_DIRECTION = np.array([0.0, 0.0, -1.0])
@@ -125,17 +131,20 @@ def _compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 class UnsupColCheck:
     """check(pose_batch (N, 16)) -> (N,) bool on the check's device.
 
-    The geometric tests run over chunks of ``D2R_PHYS_CHUNK`` (default 16384)
-    poses, after compaction to the dedup / regrasp survivors. Unlike the JAX
-    package the last chunk is not padded with identity poses: shapes need
-    not be static here. After a call, ``last_survivors`` and ``last_chunks``
+    The geometric tests run over chunks of ``D2R_PHYS_CHUNK`` (default 16384,
+    rounded up to a multiple of the mesh size) poses, after compaction to
+    the dedup / regrasp survivors, each chunk split across the mesh when
+    there is one. Unlike the JAX package the last chunk is not padded with
+    identity poses: shapes need not be static here. After a call, ``last_survivors`` and ``last_chunks``
     say how many poses reached the geometric tests and in how many chunks.
     """
 
     def __init__(self, bg_grid: TSDFGrid, movable_points, movable_init_pose, scene_centre,
                  sample_res, unsup_thresh: float, disallow_regrasp: bool,
-                 stability_check: bool, occ_thresh: float, tsdf_occ_thresh: float, device):
+                 stability_check: bool, occ_thresh: float, tsdf_occ_thresh: float, device,
+                 mesh=None):
         dev = self.device = device
+        self.mesh = mesh
         grid = bg_grid.to(dev)
         self.occ = grid.occupancy(tsdf_occ_thresh).to(F32).reshape(-1)
         self.dims = tuple(grid.tsdf.shape)
@@ -154,6 +163,22 @@ class UnsupColCheck:
         self.stability_check = stability_check
         self.occ_thresh = occ_thresh
         self.last_survivors = self.last_chunks = 0
+        # The check's state on each distinct mesh device, the grid included.
+        self._on = {dev: self}
+        for d in ((dev,) if mesh is None else mesh.distinct()):
+            if d not in self._on:
+                self._on[d] = self._moved(d)
+
+    def _moved(self, d) -> "UnsupColCheck":
+        """A copy of the check whose tensors lie on ``d``."""
+        other = copy.copy(self)
+        for name, v in vars(self).items():
+            if torch.is_tensor(v):
+                setattr(other, name, v.to(d))
+            elif isinstance(v, tuple) and v and all(torch.is_tensor(t) for t in v):
+                setattr(other, name, tuple(t.to(d) for t in v))
+        other.device = d
+        return other
 
     def _sample(self, x, y, z) -> torch.Tensor:
         s = _trilinear(self.occ, self.dims, self.origin, self.inv_voxel, x, y, z)
@@ -190,6 +215,19 @@ class UnsupColCheck:
             valid &= below_table | stable
         return valid
 
+    def _geom_sharded(self, poses: torch.Tensor) -> torch.Tensor:
+        """``geom`` over one chunk, split across the mesh in contiguous
+        shards and gathered back in order."""
+        if self.mesh is None:
+            return self.geom(poses)
+        bounds = pmesh.shard_bounds(poses.shape[0], self.mesh.size)
+
+        def shard(i, d):
+            lo, hi = bounds[i]
+            return self._on[d].geom(poses[lo:hi].to(d, non_blocking=True))
+
+        return torch.cat(pmesh.run_shards(self.mesh, shard)).to(self.device)
+
     def samples(self, pose_batch) -> torch.Tensor:
         """The sampled occupancy of every test point of every pose:
         (tests, N, M), where ties at ``occ_thresh`` can be read."""
@@ -208,15 +246,18 @@ class UnsupColCheck:
         # launch, so the geometric check streams fixed-size chunks of the
         # dedup / regrasp survivors and scatters their results back.
         chunk = max(int(os.environ.get("D2R_PHYS_CHUNK", "16384")), 1)
+        if self.mesh is not None:
+            # Chunks fill the mesh, so that every device gets rows.
+            chunk = -(-chunk // self.mesh.size) * self.mesh.size
         keep_idx = torch.nonzero(valid).squeeze(1)
         k = int(keep_idx.numel())
         self.last_survivors, self.last_chunks = k, -(-k // chunk)
         if k == 0:
             return valid
         if n <= chunk and k == n:
-            return self.geom(poses) & valid  # small all-live batch: one launch
+            return self._geom_sharded(poses) & valid  # small all-live batch: one launch
         survivors = poses[keep_idx]
-        geo = torch.cat([self.geom(survivors[s : s + chunk]) for s in range(0, k, chunk)])
+        geo = torch.cat([self._geom_sharded(survivors[s : s + chunk]) for s in range(0, k, chunk)])
         out = valid.clone()
         out[keep_idx] = geo
         return out
@@ -245,10 +286,16 @@ def make_unsupcol_check(
     not read as solid, else an object resting ON the table registers as
     colliding (Bullet's pairwise_collision fires on penetration, not
     contact).
+
+    pose_sharding: ``parallel.mesh.pose_sharding(mesh)`` splits each chunk
+    of poses over the mesh's devices; by default the auto mesh's, when it
+    leads from ``device``.
     """
-    if pose_sharding is not None:
-        raise NotImplementedError(
-            "pose_sharding: the port's validity check runs on one device")
+    dev = pmesh.canonical(resolve_device(device))
+    if pose_sharding is None:
+        mesh = pmesh.leads(pmesh.auto_mesh(), dev)
+    else:
+        mesh = pose_sharding.mesh
     return UnsupColCheck(bg_grid, movable_points, movable_init_pose, scene_centre, sample_res,
                          unsup_thresh, disallow_regrasp, stability_check, occ_thresh,
-                         tsdf_occ_thresh, resolve_device(device))
+                         tsdf_occ_thresh, dev, mesh)

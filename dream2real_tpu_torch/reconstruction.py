@@ -34,6 +34,7 @@ from dream2real_tpu_torch.nerf.trainer import (
     TrainConfig, init_train_state, make_train_chunk, optimized_poses, train_with_governor,
 )
 from dream2real_tpu_torch.ops import cameras
+from dream2real_tpu_torch.parallel import mesh as pmesh
 from dream2real_tpu_torch.utils.png import read_pngs, to_rgb, write_png
 
 
@@ -41,6 +42,10 @@ from dream2real_tpu_torch.utils.png import read_pngs, to_rgb, write_png
 #: transforms file it read, the steps the convergence governor ran and the
 #: final loss.
 TRAIN_LOG: list = []
+
+#: The sharding decision of the most recent build_vis_model run:
+#: "mesh_devices" and the global "batch_rays".
+LAST_TRAIN_INFO: dict = {}
 
 
 @dataclasses.dataclass
@@ -212,13 +217,28 @@ def build_vis_model(
                 coords = coords[np.linspace(0, len(coords) - 1, 1 << 20).astype(int)]
             fg_pixels = torch.as_tensor(coords, dtype=torch.int64, device=dev)
 
+    # Several devices: the ray batch shards over the mesh, every device
+    # taking part in every step. D2R_TRAIN_BATCH_SCALE_MESH=1 also scales
+    # the global batch by the mesh size (constant work a device); by default
+    # sharded and single-device runs train with the same batch.
+    mesh = pmesh.leads(pmesh.auto_mesh(), dev)
+    ray_sharding = None
+    if mesh is not None:
+        if os.environ.get("D2R_TRAIN_BATCH_SCALE_MESH") == "1":
+            tc = dataclasses.replace(tc, batch_rays=tc.batch_rays * mesh.size)
+        if tc.batch_rays % mesh.size == 0:
+            ray_sharding = pmesh.pose_sharding(mesh)
+    LAST_TRAIN_INFO.clear()
+    LAST_TRAIN_INFO.update(mesh_devices=1 if ray_sharding is None else mesh.size,
+                           batch_rays=tc.batch_rays)
+
     poses_t = torch.as_tensor(poses, dtype=F32, device=dev)
     chunk = make_train_chunk(
         ngp_cfg, tc, settings,
         torch.as_tensor(imgs, device=dev), poses_t, dirs_cam,
         depths=None if depths is None else torch.as_tensor(np.asarray(depths), dtype=F32,
                                                            device=dev),
-        fg_pixels=fg_pixels,
+        fg_pixels=fg_pixels, ray_sharding=ray_sharding,
     )
     state, losses = train_with_governor(chunk, state, tc, log_fn=log_fn)
     TRAIN_LOG.append({"files": os.path.basename(transforms_path), "steps": int(state["step"]),

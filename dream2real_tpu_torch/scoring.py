@@ -30,6 +30,7 @@ import torch
 from dream2real_tpu_torch.clip.scorer import build_captions
 from dream2real_tpu_torch.device import F32
 from dream2real_tpu_torch.parallel.imagine import make_imagine_and_score
+from dream2real_tpu_torch.parallel.mesh import leads, score_mesh_for
 from dream2real_tpu_torch.sampling import get_virtual_cam_poses, sample_poses_grid
 from dream2real_tpu_torch.smoothing import spatially_smooth_heatmap
 from dream2real_tpu_torch.utils.png import read_png, to_rgb, write_png
@@ -47,16 +48,19 @@ def _to_numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _slab_spec(clip_batch: int, n_poses: int):
-    """(mesh, slab, quantum) of a scoring run. One device: the mesh is None
-    and the quantum is the clip batch. Dispatches pad to the quantum;
-    D2R_SCORE_SLAB sets the slab (rounded down to a quantum multiple),
-    default 256."""
-    q = clip_batch
+def _slab_spec(clip_batch: int, n_poses: int, device):
+    """(mesh, slab, quantum) of a scoring run on ``device``. Dispatches pad
+    to the quantum, ``n_dev * clip_batch``, so that each shard fills whole
+    CLIP batches; D2R_SCORE_SLAB sets the slab (rounded down to a quantum
+    multiple), by default 256 poses a device. The mesh is
+    ``score_mesh_for``'s when it leads from ``device``."""
+    mesh = leads(score_mesh_for(n_poses, clip_batch), device)
+    n_dev = 1 if mesh is None else mesh.size
+    q = n_dev * clip_batch
     slab = int(os.environ.get("D2R_SCORE_SLAB", "0")) // q * q
     if slab <= 0:
-        slab = max(q, 256 // q * q)
-    return None, slab, q
+        slab = max(q, (256 * n_dev) // q * q)
+    return mesh, slab, q
 
 
 class _Slab:
@@ -120,8 +124,9 @@ def _fused_score(
 
     poses = np.asarray(valid_poses, np.float32).reshape(-1, 4, 4)
     k = len(poses)
-    mesh, slab, quantum = _slab_spec(cb, k)
-    n_dev = 1
+    # Several devices: the pose batch shards over the mesh (parallel/mesh.py).
+    mesh, slab, quantum = _slab_spec(cb, k, dev)
+    n_dev = 1 if mesh is None else mesh.size
     LAST_RUN_INFO.clear()
     LAST_RUN_INFO.update(n_poses=k, mesh_devices=n_dev, slab=slab, clip_batch=cb)
 

@@ -113,3 +113,42 @@ def test_loader_takes_the_native_ingest_first(tmp_path):
     assert other.decoder == "numpy"
     assert rgb2.tobytes() == rgb.tobytes() and depth2.tobytes() == depth.tobytes()
     shutil.rmtree(d)
+
+
+def test_kernel_build_starts_every_source_before_waiting(tmp_path, monkeypatch):
+    """start_build launches one compiler a kernel source and returns at once;
+    finish_build waits, keeps each log and moves each library into place;
+    a built source is not compiled again, and a failing compiler raises.
+    The compiler is a stand-in script that writes its -o file."""
+    import stat
+    import sys
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "if 'FAIL' in open(sys.argv[-1]).read(1 << 30) and 'train' in sys.argv[-1]:\n"
+        "    print('error: stand-in failure'); sys.exit(1)\n"
+        "time.sleep(1.0)\n"
+        "open(out, 'w').write('lib')\n"
+        "print('ptxas info : Used 10 registers')\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    started = build.start_build()
+    assert set(started) == set(build.SOURCES)
+    assert all(pending is not None and pending[0].poll() is None
+               for _, pending in started.values()), "start_build waited for a compiler"
+    build.finish_build(started)
+    for name in build.SOURCES:
+        assert build._target(name).read_text() == "lib"
+        assert "Used 10 registers" in build.build_log(name)
+    assert all(pending is None for _, pending in build.start_build().values())
+
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    (src / "train.cu").write_text((src / "train.cu").read_text() + "\n// FAIL\n")
+    monkeypatch.setattr(build, "CSRC", src)
+    with pytest.raises(RuntimeError, match="nvcc failed for csrc/train.cu"):
+        build.finish_build(build.start_build())

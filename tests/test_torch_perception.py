@@ -14,6 +14,7 @@ a blurred value within 2e-3 of one half (OpenCV's fixed-point blur).
 import filecmp
 import io
 import os
+import sys
 
 import cv2
 import jax
@@ -600,3 +601,21 @@ def test_captioner_matches_reference(multi_view, topdown, tmp_path):
     # The cache replays.
     cap = tcap.Captioner(topdown=topdown, read_cache=True, cache_path=str(tmp_path / "torch.json"))
     assert cap.caption_objs(4, rgbs, masks, None, scene, topdown)[0] == ta
+
+
+@pytest.mark.parametrize("call", ["backend", "captioner"])
+def test_blip2_defaults_to_the_gpu(call, monkeypatch):
+    """BLIP-2 loads on CUDA unless the caller names a device: with no GPU
+    the default raises the device error before transformers is imported
+    (an import of it would raise ImportError here)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default is valid here")
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(RuntimeError, match="no GPU is available"):
+        if call == "backend":
+            tcap.blip2_backend()
+        else:
+            tcap.Captioner(topdown=True).caption([np.zeros((4, 4, 3), np.uint8)])
+    assert tseg.Segmentor().device is None
+    with pytest.raises(ImportError):
+        tcap.blip2_backend(device="cpu")

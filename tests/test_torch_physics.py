@@ -47,6 +47,7 @@ from dream2real_tpu_torch.bridge import phys_model_from_arrays
 from dream2real_tpu_torch.device import to_numpy
 from dream2real_tpu_torch.ops import cameras as tcam
 from dream2real_tpu_torch.ops import image as timage
+from dream2real_tpu_torch.parallel.mesh import data_mesh, pose_sharding
 from dream2real_tpu_torch.physics import collision as tcol
 from dream2real_tpu_torch.physics import mesh as tmesh
 from dream2real_tpu_torch.physics import models as tmodels
@@ -411,7 +412,8 @@ def test_check_samples_read_the_tests_points(grids):
 
 def test_physics_entry_points_need_a_device(grids):
     """CUDA by default: without a GPU each entry point raises unless given
-    device='cpu'; the check refuses a pose sharding."""
+    device='cpu'; the check takes a pose sharding over a mesh (the port's
+    sharded check: tests/test_torch_mesh.py)."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the CUDA default is valid here")
     g = grids
@@ -430,9 +432,10 @@ def test_physics_entry_points_need_a_device(grids):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    with pytest.raises(NotImplementedError, match="one device"):
-        tcol.make_unsupcol_check(g["bg_t"], g["pts"], g["init_pose"], sc.centre, [1] * 6,
-                                 pose_sharding=object(), device=CPU)
+    mesh = data_mesh(devices=[CPU] * 2)
+    check = tcol.make_unsupcol_check(g["bg_t"], g["pts"], g["init_pose"], sc.centre, [1] * 6,
+                                     pose_sharding=pose_sharding(mesh), device=CPU)
+    assert check.mesh is mesh
 
 
 # ------------------------------------------------------------------- poisson
