@@ -1,0 +1,10 @@
+"""train.idle_share: the share of the traced training window (chunks of
+steps through nerf/trainer.py's train_chunk) in which no operation ran on
+the device: the host's gaps."""
+
+
+def read(ctx: dict):
+    trace = ctx.get("trace")
+    if trace is None or trace.window_s <= 0 or not trace.ops:
+        return None
+    return 100.0 * (1.0 - trace.busy_s() / trace.window_s)
