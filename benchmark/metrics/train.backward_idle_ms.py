@@ -1,0 +1,10 @@
+"""train.backward_idle_ms: milliseconds a training step that the device
+idles while the host runs autograd's backward: the traced window's gaps
+whose midpoint falls inside a ``train.backward`` span (nerf/trainer.py; the
+innermost span there), over the ``train.steps`` counter."""
+
+from benchmark.metrics import _spans
+
+
+def read(ctx: dict):
+    return _spans.idle_ms_per_step(ctx, ("train.backward",))

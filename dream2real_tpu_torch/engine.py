@@ -515,7 +515,7 @@ class ImaginationEngine:
             clip_scorer, tokenizer = (None, None)
             if not self.physics_only:
                 clip_scorer, tokenizer = self._get_clip()
-            with self.stage_timer.stage("imagine_and_score"), trace("imagine-loop"):
+            with trace("imagine-loop"), self.stage_timer.stage("imagine_and_score"):
                 best_pose, pose_batch, pose_scores = optimise_pose_grid(
                     self.renderer, self.depths_gt, self.render_cam_pose_idx, task_model,
                     self.data_dir, sample_res=self.sample_res, phys_check=phys_check,

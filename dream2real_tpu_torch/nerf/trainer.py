@@ -40,6 +40,12 @@ Optimizer: for the field, ``wd * p`` added to the gradient, then Adam (b1
 reference's ``add_decayed_weights`` + ``adam`` chain, which is what
 ``torch.optim.Adam(weight_decay=...)`` computes (``AdamW`` would not). The
 extrinsics take Adam at ``ext_lr``.
+
+While a profiler runs (``utils/profiling.py``), a chunk is a ``train.chunk``
+span holding a ``train.step`` span a step and ``train.fetch``; a step holds
+``train.sample``, ``train.forward``, ``train.backward`` and ``train.optim``
+(a sharded step's ``train.backward`` holds the shards' forwards too), and
+``train.steps`` counts the steps.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from dream2real_tpu_torch.nerf.train_kernel import render_rays_train, supports_t
 from dream2real_tpu_torch.ops.image import linear_to_srgb, srgb_to_linear
 from dream2real_tpu_torch.ops.se3 import make_pose, so3_exp
 from dream2real_tpu_torch.parallel.mesh import ShardDraws, run_shards
+from dream2real_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -328,25 +335,35 @@ def make_train_chunk(
         opt_f.zero_grad(set_to_none=True)
         opt_e.zero_grad(set_to_none=True)
         gen = state["generator"]
-        batch = sample_batch(gen)
+        with span("train.sample"):
+            batch = sample_batch(gen)
         if mesh is None:
-            loss, task_loss = loss_fn(state, batch, gen)
-            loss.backward()
+            with span("train.forward"):
+                loss, task_loss = loss_fn(state, batch, gen)
+            with span("train.backward"):
+                loss.backward()
         else:
-            task_loss = backward_sharded(state, batch, gen)
-        for group in opt_f.param_groups:
-            group["lr"] = cosine_lr(tc, state["step"])
-        opt_f.step()
-        if tc.optimize_extrinsics:
-            opt_e.step()
+            with span("train.backward"):
+                task_loss = backward_sharded(state, batch, gen)
+        with span("train.optim"):
+            for group in opt_f.param_groups:
+                group["lr"] = cosine_lr(tc, state["step"])
+            opt_f.step()
+            if tc.optimize_extrinsics:
+                opt_e.step()
         state["step"] += 1
         return task_loss
 
     def train_chunk(state):
-        total = torch.zeros((), dtype=F32, device=dev)
-        for _ in range(tc.poll_steps):
-            total = total + one_step(state)
-        return state, float(total) / tc.poll_steps
+        with span("train.chunk"):
+            total = torch.zeros((), dtype=F32, device=dev)
+            for _ in range(tc.poll_steps):
+                with span("train.step"):
+                    total = total + one_step(state)
+                count("train.steps")
+            with span("train.fetch"):
+                loss = float(total) / tc.poll_steps
+        return state, loss
 
     train_chunk.loss_fn = loss_fn  # one batch's loss, for tests that inject a batch
     return train_chunk

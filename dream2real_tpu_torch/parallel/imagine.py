@@ -42,6 +42,7 @@ from dream2real_tpu_torch.nerf.march_kernel import pack_params, supports
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField
 from dream2real_tpu_torch.nerf.render import RenderSettings
 from dream2real_tpu_torch.parallel.mesh import run_shards
+from dream2real_tpu_torch.utils.profiling import span
 
 
 def make_imagine_and_score(
@@ -105,15 +106,17 @@ def make_imagine_and_score(
         dirs_d, K_d, box_d = consts[d]
         scores = []
         for start in range(0, poses.shape[0], clip_batch):
-            imgs = render_pose_batch(
-                fg, settings, crop_settings, dirs_d, K_d, box_d,
-                fg_crop if use_crop else 0, rc, T_WO_1, T_WC_1, bg, bg_only,
-                poses[start : start + clip_batch], packed=packed,
-            )
-            pixels = preprocess_images(torch.rot90(imgs, k=1, dims=(1, 2)), clip_cfg)
-            emb = encode_image(clip_model, pixels)
-            lg = logits_per_image(clip_model, emb, txt_emb)
-            scores.append(reduce_logits(lg, n_norm_captions, use_templates))
+            with span("score.render", device=True):
+                imgs = render_pose_batch(
+                    fg, settings, crop_settings, dirs_d, K_d, box_d,
+                    fg_crop if use_crop else 0, rc, T_WO_1, T_WC_1, bg, bg_only,
+                    poses[start : start + clip_batch], packed=packed,
+                )
+            with span("score.tower", device=True):
+                pixels = preprocess_images(torch.rot90(imgs, k=1, dims=(1, 2)), clip_cfg)
+                emb = encode_image(clip_model, pixels)
+                lg = logits_per_image(clip_model, emb, txt_emb)
+                scores.append(reduce_logits(lg, n_norm_captions, use_templates))
             if renders is not None:
                 renders.append(imgs)
         return scores

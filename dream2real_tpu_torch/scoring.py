@@ -15,6 +15,13 @@ event has passed, so the copy and the encode overlap the next slab's compute
 (the reference hands a slab to its writer only when it drains it). The reference's
 tail-warm thread (it compiled the tail's programs while the slabs ran) has
 no counterpart: nothing is compiled here.
+
+While a profiler runs (``utils/profiling.py``), a ``_fused_score`` call is a
+``score.block`` span, timed on the device too, holding ``score.bg_render``
+(device), a ``score.slab`` span a slab (holding each clip group's
+``score.render`` and ``score.tower``, parallel/imagine.py) and
+``score.drain``; ``score.poses`` and ``score.groups`` count its poses and
+clip groups.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from dream2real_tpu_torch.parallel.mesh import leads, score_mesh_for
 from dream2real_tpu_torch.sampling import get_virtual_cam_poses, sample_poses_grid
 from dream2real_tpu_torch.smoothing import spatially_smooth_heatmap
 from dream2real_tpu_torch.utils.png import read_png, to_rgb, write_png
+from dream2real_tpu_torch.utils.profiling import count, span
 
 #: Observability: filled in by _fused_score with the dispatch decision of the
 #: most recent run ("n_poses", "mesh_devices", "slab", "clip_batch",
@@ -105,163 +113,151 @@ def _fused_score(
     discarded. save_renders=True streams each slab's u8 composites to
     renderer.out_render_path (cb_render/) from a writer thread.
     """
-    perf = os.environ.get("D2R_PERF_LOG") == "1"
-    dev = renderer.device
-    _t = time.time()
+    with span("score.block", device=True):
+        dev = renderer.device
+        captions = build_captions(task_model.goal_caption, task_model.norm_captions, use_templates)
+        n_norm = 0 if task_model.norm_captions is None else len(task_model.norm_captions)
+        cb = min(32, clip_scorer.batch_size)
+        save_dir = renderer.out_render_path if save_renders else None
 
-    def _lap(tag):
-        nonlocal _t
-        if perf:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            print(f"# fused_score {tag}: {time.time() - _t:.2f}s", flush=True)
-        _t = time.time()
+        poses = np.asarray(valid_poses, np.float32).reshape(-1, 4, 4)
+        k = len(poses)
+        # Several devices: the pose batch shards over the mesh (parallel/mesh.py).
+        mesh, slab, quantum = _slab_spec(cb, k, dev)
+        n_dev = 1 if mesh is None else mesh.size
+        LAST_RUN_INFO.clear()
+        LAST_RUN_INFO.update(n_poses=k, mesh_devices=n_dev, slab=slab, clip_batch=cb)
 
-    captions = build_captions(task_model.goal_caption, task_model.norm_captions, use_templates)
-    n_norm = 0 if task_model.norm_captions is None else len(task_model.norm_captions)
-    cb = min(32, clip_scorer.batch_size)
-    save_dir = renderer.out_render_path if save_renders else None
-
-    poses = np.asarray(valid_poses, np.float32).reshape(-1, 4, 4)
-    k = len(poses)
-    # Several devices: the pose batch shards over the mesh (parallel/mesh.py).
-    mesh, slab, quantum = _slab_spec(cb, k, dev)
-    n_dev = 1 if mesh is None else mesh.size
-    LAST_RUN_INFO.clear()
-    LAST_RUN_INFO.update(n_poses=k, mesh_devices=n_dev, slab=slab, clip_batch=cb)
-
-    # Reuse prefetched text embeddings when they were made by this scorer
-    # for this caption set, and a built score function when it was made for
-    # exactly this renderer too.
-    txt = score_fn = None
-    if (
-        prefetch is not None
-        and prefetch.get("txt") is not None
-        and prefetch.get("clip_scorer") is clip_scorer
-        and prefetch.get("captions") == captions
-    ):
-        txt = prefetch["txt"]
-        _lap("text embeddings (prefetched)")
+        # Reuse prefetched text embeddings when they were made by this scorer
+        # for this caption set, and a built score function when it was made for
+        # exactly this renderer too.
+        txt = score_fn = None
         if (
-            prefetch.get("score_fn") is not None
-            and prefetch.get("renderer") is renderer
-            and prefetch.get("score_fn_key")
-            == (n_norm, use_templates, cb, save_dir is not None, n_dev)
+            prefetch is not None
+            and prefetch.get("txt") is not None
+            and prefetch.get("clip_scorer") is clip_scorer
+            and prefetch.get("captions") == captions
         ):
-            score_fn = prefetch["score_fn"]
-    if txt is None:
-        txt = clip_scorer.text_embeddings(np.asarray(tokenizer(captions)))
-        _lap("text embeddings")
-    if score_fn is None:
-        score_fn = make_imagine_and_score(
-            renderer.fg.cfg, clip_scorer.cfg, renderer.settings, renderer.dirs_cam,
-            n_norm_captions=n_norm, use_templates=use_templates, clip_batch=cb,
-            obj_aabb=renderer.obj_aabb, fg_crop=renderer.fg_crop,
-            crop_settings=renderer.crop_settings, intrinsics=renderer.intrinsics,
-            row_chunk=renderer.row_chunk, return_renders=save_dir is not None,
-            mesh=mesh, device=dev,
-        )
-        _lap("score_fn build")
-    bg = renderer.render_background(
-        render_poses[0],
-        None if depths_gt is None else depths_gt[0],
-        None if movable_masks is None else movable_masks[0],
-    )
-    _lap("bg render")
-    T_WC = torch.as_tensor(np.asarray(render_poses[0], np.float32), device=dev)
-    T_WO = torch.as_tensor(np.asarray(T_WO_1, np.float32), device=dev)
-    out = np.empty(k, np.float32)
+            txt = prefetch["txt"]
+            if (
+                prefetch.get("score_fn") is not None
+                and prefetch.get("renderer") is renderer
+                and prefetch.get("score_fn_key")
+                == (n_norm, use_templates, cb, save_dir is not None, n_dev)
+            ):
+                score_fn = prefetch["score_fn"]
+        if txt is None:
+            txt = clip_scorer.text_embeddings(np.asarray(tokenizer(captions)))
+        if score_fn is None:
+            score_fn = make_imagine_and_score(
+                renderer.fg.cfg, clip_scorer.cfg, renderer.settings, renderer.dirs_cam,
+                n_norm_captions=n_norm, use_templates=use_templates, clip_batch=cb,
+                obj_aabb=renderer.obj_aabb, fg_crop=renderer.fg_crop,
+                crop_settings=renderer.crop_settings, intrinsics=renderer.intrinsics,
+                row_chunk=renderer.row_chunk, return_renders=save_dir is not None,
+                mesh=mesh, device=dev,
+            )
+        with span("score.bg_render", device=True):
+            bg = renderer.render_background(
+                render_poses[0],
+                None if depths_gt is None else depths_gt[0],
+                None if movable_masks is None else movable_masks[0],
+            )
+        T_WC = torch.as_tensor(np.asarray(render_poses[0], np.float32), device=dev)
+        T_WO = torch.as_tensor(np.asarray(T_WO_1, np.float32), device=dev)
+        out = np.empty(k, np.float32)
 
-    writer = futures = side = None
-    if save_dir is not None:
-        if os.path.exists(save_dir):
-            shutil.rmtree(save_dir)
-        os.makedirs(save_dir)
-        if dev.type == "cuda":
-            side = torch.cuda.Stream(device=dev)
-
-        def _write(entry: _Slab):
-            entry.wait()
-            arr = entry.imgs.numpy()
-            for j in range(entry.n):
-                write_png(os.path.join(save_dir, f"cb_rgb_{entry.start + j:04d}.png"), arr[j])
-
-        # zlib releases the interpreter lock while it deflates, so
-        # D2R_WRITER_THREADS > 1 encodes several slabs at once.
-        writer = ThreadPoolExecutor(
-            max_workers=max(1, int(os.environ.get("D2R_WRITER_THREADS", "1")))
-        )
-        futures = []
-
-    # Dispatch every slab before fetching anything. Scores are tiny; the u8
-    # render slabs leave the device on the side stream and go to the writer
-    # as they are dispatched, under a pending-bytes cap, so that a
-    # reference-scale run (70k poses are about 23 GB of renders) never holds
-    # them all in device or pinned memory.
-    pending: list[_Slab] = []
-    peak_pending = 0
-    img_bytes = slab * renderer.res * renderer.res * 3
-    MAX_PENDING = int(os.environ.get("D2R_RENDER_PENDING_MB", "1536")) * 2**20
-    t_dispatch0 = time.time()
-
-    def _bound_backlog():
-        # A slab's buffers (on the device until its copy has run, pinned on
-        # the host until its files are written) live until the writer THREAD
-        # is done with it. Retire finished slabs, then block on the oldest
-        # while the backlog exceeds the cap: the host then dispatches no
-        # faster than the encoder writes, which is the limit anyway, and
-        # the renders in flight stay under the cap plus one slab.
-        nonlocal peak_pending
-        peak_pending = max(peak_pending, len(futures) * img_bytes)
-        while futures and futures[0].done():
-            futures.pop(0).result()
-        while len(futures) * img_bytes > MAX_PENDING:
-            futures.pop(0).result()
-
-    # One H2D for the whole pose batch, sliced per slab on the device. The
-    # tail is padded to the quantum with identity poses up front.
-    pad_total = (-k) % quantum
-    if pad_total:
-        poses = np.concatenate(
-            [poses, np.tile(np.eye(4, dtype=np.float32)[None], (pad_total, 1, 1))]
-        )
-    poses_dev = torch.as_tensor(poses, device=dev)
-    for s in range(0, k, slab):
-        n = min(slab, k - s)
-        result = score_fn(
-            renderer.fg, clip_scorer.params, T_WO, T_WC, bg, txt,
-            poses_dev[s : s + min(slab, len(poses) - s)],
-        )
+        writer = futures = side = None
         if save_dir is not None:
-            pending.append(_Slab(s, n, *result, side))
-            futures.append(writer.submit(_write, pending[-1]))
-            _bound_backlog()
-        else:
-            pending.append(_Slab(s, n, result, None, None))
-        if s == 0:
-            _lap("first slab (dispatch)")
-    t_drain0 = time.time()
-    if save_dir is None and pending:
-        # One device-side concat and ONE D2H instead of a fetch per slab.
-        # Each entry's valid prefix is sliced on the device, so slabs that
-        # carry padding stay aligned.
-        out[:] = _to_numpy(torch.cat([e.scores[: e.n] for e in pending]))
-        pending.clear()
-    for entry in pending:
-        entry.wait()
-        out[entry.start : entry.start + entry.n] = _to_numpy(entry.scores)[: entry.n]
-    if writer is not None:
-        for f in futures:
-            f.result()  # wait for the files; surface the writer threads' exceptions
-        writer.shutdown()
-    _lap("all slabs (compute + score/render D2H)")
-    LAST_RUN_INFO["peak_pending_mb"] = round(peak_pending / 2**20, 1)
-    LAST_RUN_INFO["dispatch_s"] = round(t_drain0 - t_dispatch0, 2)
-    # From the last dispatch until every score is on the host and every
-    # file is written.
-    LAST_RUN_INFO["drain_s"] = round(time.time() - t_drain0, 2)
-    LAST_RUN_INFO["n_slabs"] = -(-k // slab)
-    return out
+            if os.path.exists(save_dir):
+                shutil.rmtree(save_dir)
+            os.makedirs(save_dir)
+            if dev.type == "cuda":
+                side = torch.cuda.Stream(device=dev)
+
+            def _write(entry: _Slab):
+                entry.wait()
+                arr = entry.imgs.numpy()
+                for j in range(entry.n):
+                    write_png(os.path.join(save_dir, f"cb_rgb_{entry.start + j:04d}.png"), arr[j])
+
+            # zlib releases the interpreter lock while it deflates, so
+            # D2R_WRITER_THREADS > 1 encodes several slabs at once.
+            writer = ThreadPoolExecutor(
+                max_workers=max(1, int(os.environ.get("D2R_WRITER_THREADS", "1")))
+            )
+            futures = []
+
+        # Dispatch every slab before fetching anything. Scores are tiny; the u8
+        # render slabs leave the device on the side stream and go to the writer
+        # as they are dispatched, under a pending-bytes cap, so that a
+        # reference-scale run (70k poses are about 23 GB of renders) never holds
+        # them all in device or pinned memory.
+        pending: list[_Slab] = []
+        peak_pending = 0
+        img_bytes = slab * renderer.res * renderer.res * 3
+        MAX_PENDING = int(os.environ.get("D2R_RENDER_PENDING_MB", "1536")) * 2**20
+        t_dispatch0 = time.time()
+
+        def _bound_backlog():
+            # A slab's buffers (on the device until its copy has run, pinned on
+            # the host until its files are written) live until the writer THREAD
+            # is done with it. Retire finished slabs, then block on the oldest
+            # while the backlog exceeds the cap: the host then dispatches no
+            # faster than the encoder writes, which is the limit anyway, and
+            # the renders in flight stay under the cap plus one slab.
+            nonlocal peak_pending
+            peak_pending = max(peak_pending, len(futures) * img_bytes)
+            while futures and futures[0].done():
+                futures.pop(0).result()
+            while len(futures) * img_bytes > MAX_PENDING:
+                futures.pop(0).result()
+
+        # One H2D for the whole pose batch, sliced per slab on the device. The
+        # tail is padded to the quantum with identity poses up front.
+        pad_total = (-k) % quantum
+        if pad_total:
+            poses = np.concatenate(
+                [poses, np.tile(np.eye(4, dtype=np.float32)[None], (pad_total, 1, 1))]
+            )
+        poses_dev = torch.as_tensor(poses, device=dev)
+        count("score.poses", k)
+        count("score.groups", len(poses) // cb)
+        for s in range(0, k, slab):
+            n = min(slab, k - s)
+            with span("score.slab"):
+                result = score_fn(
+                    renderer.fg, clip_scorer.params, T_WO, T_WC, bg, txt,
+                    poses_dev[s : s + min(slab, len(poses) - s)],
+                )
+            if save_dir is not None:
+                pending.append(_Slab(s, n, *result, side))
+                futures.append(writer.submit(_write, pending[-1]))
+                _bound_backlog()
+            else:
+                pending.append(_Slab(s, n, result, None, None))
+        t_drain0 = time.time()
+        with span("score.drain"):
+            if save_dir is None and pending:
+                # One device-side concat and ONE D2H instead of a fetch per
+                # slab. Each entry's valid prefix is sliced on the device, so
+                # slabs that carry padding stay aligned.
+                out[:] = _to_numpy(torch.cat([e.scores[: e.n] for e in pending]))
+                pending.clear()
+            for entry in pending:
+                entry.wait()
+                out[entry.start : entry.start + entry.n] = _to_numpy(entry.scores)[: entry.n]
+            if writer is not None:
+                for f in futures:
+                    f.result()  # wait for the files; surface the writer threads' exceptions
+                writer.shutdown()
+        LAST_RUN_INFO["peak_pending_mb"] = round(peak_pending / 2**20, 1)
+        LAST_RUN_INFO["dispatch_s"] = round(t_drain0 - t_dispatch0, 2)
+        # From the last dispatch until every score is on the host and every
+        # file is written.
+        LAST_RUN_INFO["drain_s"] = round(time.time() - t_drain0, 2)
+        LAST_RUN_INFO["n_slabs"] = -(-k // slab)
+        return out
 
 
 def optimise_pose_grid(
