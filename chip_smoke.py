@@ -52,12 +52,14 @@ Phases (any failure raises; the exit code is then nonzero):
                 the synth scene, 336^2, 36 views, 8192 rays, 32 + 32 samples,
                 depth supervision, 3000 steps; steps/s, final loss, and the
                 selftest's bar (PSNR > 22 dB, median depth error < 5 cm);
-                1 K5, 1 K6 and 1 K7 launch a step (K7's row pass and
-                weight-gradient products once a chunk of rays), no K8; K5,
+                K5, K6 and K7 launched by the host twice (the warm-up and
+                the capture of the step's CUDA graph), no K8; K5,
                 K7 and K8 against their plain versions on the trained field;
                 two fresh 20-step runs from one seed bit-identical; a 20-step
                 run with D2R_FUSED_SAMPLER=0, which launches K8; five steps
-                under the profiler: the device time a step, by kernel
+                under the profiler: the device time a step, by kernel, and
+                1 K5, 1 K6 and 1 K7 run a step on the device (K7's row pass
+                and weight-gradient products once a chunk of rays)
   P physics     (while phase 1's nvcc runs: it launches no kernel of the
                 port) on phase T's scan (36 x 336^2, rendered again and held
                 against T's depths after T): TaskModel.create_lazy_phys_mods
@@ -121,7 +123,8 @@ Phases (any failure raises; the exit code is then nonzero):
                 field's steps, the poses scored and the valid count; the
                 artifact set, the goal pose scored and physics-valid, the
                 card's validity mask against the CPU path's, K1, K2, K4, K5,
-                K6 and K7 launched (K3 only beneath K2, K8 not), the fields
+                K6 and K7 launched (K3 only beneath K2, K8 not; K6 at each
+                field's graph's warm-up and capture), the fields
                 and the tower on the card, and a replay from the caches
                 (dynamic masks, segs, camera poses, physics, fields) with
                 the same goal pose to 1e-5; the scan decoded by the native
@@ -174,11 +177,12 @@ Phases (any failure raises; the exit code is then nonzero):
                 identical; one step of the selftest configuration on the
                 kernel path, sharded against unsharded over the same rays
                 and draws: the loss, max |diff| / scale and the least cosine
-                of the gradients (>= 0.9999), K5-K7 once a shard. With
+                of the gradients (>= 0.9999), K5-K7 once a shard (and at
+                the unsharded step graph's warm-up and capture). With
                 several cards, the scoring and the check again over them
   X extrinsics  experiments/extr_grad_ab.py at 5 deg / 30 mm for X_STEPS
-                steps, the fused arm (K5-K7 every step, K7 with ray
-                gradients) and the plain autograd arm (no training kernel):
+                steps, the fused arm (K5-K7 in the step's graph, K7 with
+                ray gradients) and the plain autograd arm (no training kernel):
                 each lowers the perturbed cameras' mean rotation error and
                 keeps the anchors' drift below the start
 The second-to-last line is the kernels JSON, the last the device JSON.
@@ -211,6 +215,10 @@ SEED = 0
 RANDOM_FIELD_POSES_S = 221.16
 # The selftest's training steps, which phase T runs in full.
 TRAIN_STEPS = 3000
+# The host's launches of each training kernel for a state trained on one
+# card through the fused kernels: the warm-up and the capture of the step's
+# CUDA graph (nerf/trainer.py::_capture); every step is a replay.
+GRAPH_LAUNCHES = 2
 # Field MACs per sample at the widths the function needs, not the kernels'
 # padded tiles: the trunk 63 -> 256, 2 x 256^2, 319 -> 256, 256 -> 16 (sigma
 # and 15 geometry features); the colour head 31 -> 64 -> 64 -> 3; the
@@ -237,6 +245,24 @@ def log(*args):
 
 def phase(name):
     log(f"== {name}")
+
+
+def device_ops(prof) -> list:
+    """(name, ms) of each operation a torch.profiler saw on the device:
+    kernels, copies and sets, but not the annotations (a host range's
+    mirror on the device timeline, which spans the kernels under it)."""
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        kind = str(getattr(ev, "activity_type", lambda: "")()).lower()
+        if ("annotation" in kind or getattr(ev, "is_user_annotation", lambda: False)()
+                or "CUDA" not in str(ev.device_type())):
+            continue
+        try:
+            ms = ev.duration_ns() * 1e-6
+        except AttributeError:  # older builds: microseconds
+            ms = ev.duration_us() * 1e-3
+        out.append((ev.name(), ms))
+    return out
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -714,8 +740,9 @@ def engine_phase(dev, smi, clip, clip_cfg, counters) -> dict:
     if (launches["attention_qkv (K3)"] != launches["ln_qkv_attention (K2)"]
             or launches["density_weights (K8)"] != 0):
         raise AssertionError(f"E2: K3 outside K2 or K8 launched: {launches}")
-    if launches["train_fwd (K6)"] != sum(f["steps"] for f in fields):
-        raise AssertionError("E2: K6 launches are not the fields' steps")
+    if launches["train_fwd (K6)"] != GRAPH_LAUNCHES * len(fields):
+        raise AssertionError(f"E2: K6 launched {launches['train_fwd (K6)']} times for "
+                             f"{len(fields)} fields, not each field's graph's warm-up and capture")
     # The renderer holds the task fields (the task model drops the bg
     # field's handle once scoring is done, as the reference does).
     tensors = {"fg field": eng.renderer.fg, "bg field": eng.renderer.bg,
@@ -1241,8 +1268,10 @@ def extrinsics_phase(dev, smi, counters) -> None:
             f"K7 with ray gradients {ray} ({smi}); the JAX package's TPU record at 4000 steps "
             f"(history): {EXTR_RECORD['fused_approx' if flag == '1' else 'xla_exact']}")
         fused = flag == "1"
-        if fused and not (all(v == X_STEPS for v in launches.values()) and ray == X_STEPS):
-            raise AssertionError(f"X {name}: launches {launches}, ray-gradient K7 {ray}")
+        if fused and not (all(v == GRAPH_LAUNCHES for v in launches.values())
+                          and ray == GRAPH_LAUNCHES):
+            raise AssertionError(f"X {name}: launches {launches}, ray-gradient K7 {ray}, not the "
+                                 f"graph's warm-up and capture")
         if not fused and any(launches.values()):
             raise AssertionError(f"X {name}: a training kernel launched: {launches}")
         if not (arm["rot_deg"] < init["rot_deg"] and arm["anchor_rot_deg"] < init["rot_deg"]):
@@ -1376,7 +1405,7 @@ def mesh_phase(dev, smi, ctx) -> None:
         f"{ls:.7f} / {lu:.7f}; max |diff| / scale {max(errs.values()):.3e} "
         f"({max(errs, key=errs.get)}); least cosine {coss[worst]:.8f} ({worst}); K5, K6, K7 "
         f"launches {ns} sharded, {nu} unsharded")
-    if nu != [1, 1, 1] or ns != [MESH_SHARDS] * 3:
+    if nu != [GRAPH_LAUNCHES] * 3 or ns != [MESH_SHARDS] * 3:
         raise AssertionError(f"M4: the kernel path did not run as expected: {nu} / {ns}")
     if coss[worst] < MESH_MIN_COSINE or abs(ls - lu) > 1e-4 * abs(lu):
         raise AssertionError(f"M4: sharded step off: cosine {coss[worst]}, loss {ls} / {lu}")
@@ -2204,15 +2233,17 @@ def main() -> int:
         f"(data, kernel load, training and two 336^2 renders): {st['steps_per_s']:.2f} steps/s "
         f"over the last {st['timed_steps']}; final loss {st['final_loss']:.5f}; launches "
         f"{train_launches} ({name}; {smi})")
-    for key in ("density_sample (K5)", "train_fwd (K6)", "train_bwd (K7)"):
-        if train_launches[key] != st["steps"]:
-            raise AssertionError(
-                f"{key} launched {train_launches[key]} times in {st['steps']} steps")
+    # The host launches each training kernel at the warm-up and the capture
+    # of the step's graph; the replays run them on the device (counted from
+    # the profiled steps below).
     chunks = tk.train_geometry(8192, n_draw, torch.cuda.get_device_properties(dev)
                                .multi_processor_count)["n_chunks"]
-    for key in ("train_bwd row pass (inside K7)", "train_bwd weight gradients (inside K7)"):
-        if train_launches[key] != chunks * st["steps"]:
-            raise AssertionError(f"{key} launched {train_launches[key]} times, not {chunks} a step")
+    for key, per in (("density_sample (K5)", 1), ("train_fwd (K6)", 1), ("train_bwd (K7)", 1),
+                     ("train_bwd row pass (inside K7)", chunks),
+                     ("train_bwd weight gradients (inside K7)", chunks)):
+        if train_launches[key] != GRAPH_LAUNCHES * per:
+            raise AssertionError(f"{key} launched {train_launches[key]} times by the host, not "
+                                 f"{GRAPH_LAUNCHES * per} (the graph's warm-up and capture)")
     if train_launches["density_weights (K8)"] != 0:
         raise AssertionError("K8 launched on the fused-sampler path")
     for tag, psnr_, derr_ in (("view 5", st["psnr"], st["depth_err_m"]),
@@ -2281,44 +2312,50 @@ def main() -> int:
     finally:
         os.environ["D2R_FUSED_SAMPLER"] = "1"
     log(f"  D2R_FUSED_SAMPLER=0: 20 steps, loss {loss8:.5f}, launches {k8_launches}")
-    if k8_launches["density_weights (K8)"] != 20 or k8_launches["density_sample (K5)"] != 0:
+    if (k8_launches["density_weights (K8)"] != GRAPH_LAUNCHES
+            or k8_launches["density_sample (K5)"] != 0):
         raise AssertionError("the D2R_FUSED_SAMPLER=0 path did not run through K8")
     # Five training steps of the selftest configuration on a fresh state,
-    # after one warm step, under the profiler: the device time a step, by
-    # kernel.
+    # after one warm chunk (which also captures the step's CUDA graph),
+    # under the profiler: the device time a step, by kernel.
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     tc5 = dataclasses.replace(st["tc"], poll_steps=5)
     state5 = init_train_state(st["cfg"], tc5, n_images=36, device=dev)
-    make_train_chunk(st["cfg"], dataclasses.replace(tc5, poll_steps=1), settings,
-                     **st["data"])(state5)
     chunk5 = make_train_chunk(st["cfg"], tc5, settings, **st["data"])
+    chunk5(state5)
     torch.cuda.synchronize()
     t5 = time.perf_counter()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof5:
         chunk5(state5)
         torch.cuda.synchronize()
     wall5 = (time.perf_counter() - t5) * 1e3 / 5
-    by_kernel = {}
-    for ev in prof5.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(ev, "device_time_total", None)
-            by_kernel[ev.key] = (us if us is not None else ev.cuda_time_total) / 1e3 / 5
+    ops5 = device_ops(prof5)
     step_parts = {"K5 density_rows<true>": ("density_rows<true>",),
                   "K6 train_rows<false>": ("train_rows<false>",),
                   "K7 train_rows<true>": ("train_rows<true>",),
                   "K7 dw_gemm + reduce_grads": ("dw_gemm", "reduce_grads")}
-    split = {part: sum(ms for key, ms in by_kernel.items() if any(w_ in key for w_ in words))
+    split = {part: sum(ms for key, ms in ops5 if any(w_ in key for w_ in words)) / 5
              for part, words in step_parts.items()}
-    dev_step = sum(by_kernel.values())
+    dev_step = sum(ms for _, ms in ops5) / 5
     split["the rest"] = dev_step - sum(split.values())
+    runs5 = {word: sum(word in key for key, _ in ops5) / 5 for word in (
+        "density_rows<true>", "train_rows<false>", "train_rows<true>", "dw_gemm",
+        "reduce_grads", "density_rows<false>")}
     log(f"  5 profiled training steps: {dev_step:.3f} ms of device time a step ("
         + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in split.items())
         + f"); unprofiled a step takes {1e3 / st['steps_per_s']:.2f} ms (the selftest's steps/s), "
         f"so the device is idle {max(0.0, 1.0 - dev_step * st['steps_per_s'] / 1e3) * 100:.1f}% of "
         f"it; {wall5:.2f} ms of wall a step under the profiler ({smi})")
+    log(f"  kernels run a step on the device: {runs5}")
     if not all(split[k_] > 0 for k_ in step_parts):
         raise AssertionError(f"the profiler shows no device time for a training kernel: {split}")
+    if dev_step > wall5:
+        raise AssertionError(f"{dev_step} ms of device work a step in {wall5} ms of wall")
+    want5 = {"density_rows<true>": 1, "train_rows<false>": 1, "train_rows<true>": chunks,
+             "dw_gemm": chunks, "reduce_grads": 1, "density_rows<false>": 0}
+    if runs5 != want5:
+        raise AssertionError(f"kernels run a training step: {runs5}, not {want5}")
     for k in kernels:
         if k["name"] in train_launches:
             k["launches"] = (k8_launches if k["name"] == "density_weights (K8)"

@@ -30,6 +30,32 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_CONSTANTS: dict = {}
+
+
+def shared_constant(key, device, make) -> torch.Tensor:
+    """``make(device)``, made once a (key, device), outside inference mode
+    so that autograd may save it, and shared by every caller, who must not
+    write into it. A tensor built from host numbers on the card is a copy
+    that waits for the device; a training step may not wait, and a captured
+    one cannot."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = _CONSTANTS.get((key, dev))
+    if out is None:
+        with torch.inference_mode(False):
+            out = _CONSTANTS[key, dev] = make(dev)
+    return out
+
+
+def f32_constant(values, device) -> torch.Tensor:
+    """A float32 tensor of the numbers ``values`` on ``device``, a shared
+    constant keyed by its float32 bits (-0.0 and NaN keep their own)."""
+    host = torch.tensor([float(v) for v in values], dtype=F32)
+    return shared_constant(host.numpy().tobytes(), device, lambda dev: host.clone().to(dev))
+
+
 def to_numpy(x) -> np.ndarray:
     """A tensor (any device) or array-like -> a host numpy array."""
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from dream2real_tpu_torch.device import BF16, F32, bf16_weight, dot_bf16, dot_exact, resolve_device
+from dream2real_tpu_torch.device import (BF16, F32, bf16_weight, dot_bf16, dot_exact, f32_constant,
+                                         resolve_device, shared_constant)
 from dream2real_tpu_torch.nerf.hashgrid import HashGridConfig, hash_encode, init_hash_table
 
 
@@ -139,10 +140,14 @@ def sh_encode_deg4(d: torch.Tensor) -> torch.Tensor:
 
 
 def posenc_freqs(deg: int, device=None) -> torch.Tensor:
-    """f32 band frequencies 2^j * pi (exact power-of-two multiples of f32 pi)."""
-    return torch.tensor(2.0, dtype=F32, device=device) ** torch.arange(
-        deg, dtype=F32, device=device
-    ) * torch.tensor(math.pi, dtype=F32, device=device)
+    """f32 band frequencies 2^j * pi (exact power-of-two multiples of f32 pi),
+    a shared constant (``device.shared_constant``)."""
+    def make(dev):
+        return torch.tensor(2.0, dtype=F32, device=dev) ** torch.arange(
+            deg, dtype=F32, device=dev
+        ) * torch.tensor(math.pi, dtype=F32, device=dev)
+
+    return shared_constant(("posenc_freqs", deg), "cpu" if device is None else device, make)
 
 
 def posenc(p: torch.Tensor, deg: int) -> torch.Tensor:
@@ -175,10 +180,7 @@ def trunc_exp(x: torch.Tensor) -> torch.Tensor:
 
 
 def _aabb(cfg: NGPConfig, device):
-    return (
-        torch.tensor(cfg.aabb_min, dtype=F32, device=device),
-        torch.tensor(cfg.aabb_max, dtype=F32, device=device),
-    )
+    return f32_constant(cfg.aabb_min, device), f32_constant(cfg.aabb_max, device)
 
 
 def density_fn(field: NGPField, positions: torch.Tensor):

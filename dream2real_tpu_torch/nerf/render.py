@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from dream2real_tpu_torch.device import F32
+from dream2real_tpu_torch.device import F32, f32_constant
 from dream2real_tpu_torch.nerf.model import NGPField, density_fn, field_fn
 from dream2real_tpu_torch.parallel.mesh import uniform
 
@@ -34,9 +34,10 @@ class RenderSettings(NamedTuple):
 
 
 def ray_aabb(origins: torch.Tensor, dirs: torch.Tensor, aabb_min, aabb_max):
-    """Slab test. (..., 3) -> (t_near, t_far); t_far < t_near on a miss."""
-    lo_b = torch.as_tensor(aabb_min, dtype=F32, device=dirs.device)
-    hi_b = torch.as_tensor(aabb_max, dtype=F32, device=dirs.device)
+    """Slab test. (..., 3) -> (t_near, t_far); t_far < t_near on a miss. The
+    box's corners: tensors, or numbers made into shared device constants."""
+    lo_b, hi_b = (torch.as_tensor(b, dtype=F32, device=dirs.device) if torch.is_tensor(b)
+                  else f32_constant(b, dirs.device) for b in (aabb_min, aabb_max))
     safe = torch.where(dirs.abs() < 1e-9, torch.full_like(dirs, 1e-9), dirs)
     lo = (lo_b - origins) / safe
     hi = (hi_b - origins) / safe

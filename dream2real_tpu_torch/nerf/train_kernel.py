@@ -48,7 +48,7 @@ import os
 import torch
 
 from dream2real_tpu_torch import build
-from dream2real_tpu_torch.device import BF16, F32, bf16_round, dot_exact
+from dream2real_tpu_torch.device import BF16, F32, bf16_round, dot_exact, f32_constant
 from dream2real_tpu_torch.nerf.march_kernel import _fma, image_index, supports
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField, posenc_freqs, sh_encode_deg4
 from dream2real_tpu_torch.nerf.render import RenderSettings, ray_aabb, sample_pdf
@@ -219,8 +219,9 @@ def unpack_grads(g: torch.Tensor) -> dict[str, torch.Tensor]:
 
 
 def field_box(cfg: NGPConfig, device) -> torch.Tensor:
-    """(6,) f32 [aabb_min | aabb_max], the kernels' box argument."""
-    return torch.tensor(tuple(cfg.aabb_min) + tuple(cfg.aabb_max), dtype=F32, device=device)
+    """(6,) f32 [aabb_min | aabb_max], the kernels' box argument (a shared
+    constant: ``device.f32_constant``)."""
+    return f32_constant(tuple(cfg.aabb_min) + tuple(cfg.aabb_max), device)
 
 
 # ------------------------------------------------------------ plain versions

@@ -41,11 +41,21 @@ reference's ``add_decayed_weights`` + ``adam`` chain, which is what
 ``torch.optim.Adam(weight_decay=...)`` computes (``AdamW`` would not). The
 extrinsics take Adam at ``ext_lr``.
 
+On one card, with the fused kernels, the step's gradients are a CUDA graph:
+the chunk that first meets a state warms them up on a side stream, puts the
+generator back and captures the draws, the loss, the backward through K5-K7
+and the task-loss sum; every step then fills the extrinsics gate, replays
+the graph and runs both optimizers as the eager step does. A replay is the
+eager step bit for bit: the same kernels, the generator registered with the
+graph, and the same optimizer step on the gradients the graph leaves. The
+CPU, the sharded step and the plain render take the eager step.
+
 While a profiler runs (``utils/profiling.py``), a chunk is a ``train.chunk``
-span holding a ``train.step`` span a step and ``train.fetch``; a step holds
-``train.sample``, ``train.forward``, ``train.backward`` and ``train.optim``
-(a sharded step's ``train.backward`` holds the shards' forwards too), and
-``train.steps`` counts the steps.
+span holding a ``train.step`` span a step and ``train.fetch``; an eager step
+holds ``train.sample``, ``train.forward``, ``train.backward`` and
+``train.optim`` (a sharded step's ``train.backward`` holds the shards'
+forwards too), a replayed one ``train.replay`` and ``train.optim``.
+``train.steps`` counts the steps, ``train.graph_steps`` the replayed ones.
 """
 
 from __future__ import annotations
@@ -172,6 +182,11 @@ def make_train_chunk(
         if d not in data:
             data[d] = tuple(None if t is None else t.to(d) for t in data[dev])
 
+    # The chunk's task-loss sum, zeroed a chunk, and the extrinsics gate,
+    # filled a step: tensors that the step's graph reads and writes.
+    total = torch.zeros((), dtype=F32, device=dev)
+    ext_gate = torch.zeros((), dtype=F32, device=dev)
+
     def sample_batch(gen):
         """-> (img_idx, py, px, bg, u_free): the step's rays, background
         colours and free-space sample quantiles."""
@@ -204,7 +219,7 @@ def make_train_chunk(
             # The gate zeroes the deltas (and their gradients) before
             # ext_start_step; the one-hot product keeps the pick
             # differentiable in every pose.
-            gate = float(state["step"] >= tc.ext_start_step)
+            gate = ext_gate if on in (None, dev) else ext_gate.to(on, non_blocking=True)
             poses = optimized_poses(state["ext_rot"] * gate, state["ext_trans"] * gate,
                                     poses_init)
             sel = torch.nn.functional.one_hot(img_idx, n_img).to(F32)
@@ -330,10 +345,11 @@ def make_train_chunk(
                 p.grad = extra if p.grad is None else p.grad + extra
         return task_loss / n
 
-    def one_step(state):
-        opt_f, opt_e = state["opt_field"], state["opt_ext"]
-        opt_f.zero_grad(set_to_none=True)
-        opt_e.zero_grad(set_to_none=True)
+    def grads_step(state):
+        """The step's draws, loss and gradients, left in the trained tensors'
+        ``.grad``, its task loss added into ``total``: called, or captured."""
+        state["opt_field"].zero_grad(set_to_none=True)
+        state["opt_ext"].zero_grad(set_to_none=True)
         gen = state["generator"]
         with span("train.sample"):
             batch = sample_batch(gen)
@@ -345,28 +361,105 @@ def make_train_chunk(
         else:
             with span("train.backward"):
                 task_loss = backward_sharded(state, batch, gen)
+        total.add_(task_loss)
+
+    def fill_gate(state):
+        if tc.optimize_extrinsics:
+            ext_gate.fill_(float(state["step"] >= tc.ext_start_step))
+
+    def optim_step(state):
         with span("train.optim"):
+            opt_f = state["opt_field"]
             for group in opt_f.param_groups:
                 group["lr"] = cosine_lr(tc, state["step"])
             opt_f.step()
             if tc.optimize_extrinsics:
-                opt_e.step()
-        state["step"] += 1
-        return task_loss
+                state["opt_ext"].step()
+
+    # The flagship field's gradients on one card are replayed as a CUDA
+    # graph: the sharded step and the plain render stay eager.
+    graphed = dev.type == "cuda" and mesh is None and use_kernel
+    captured: dict = {}
+
+    def step_graph(state):
+        """The CUDA graph of ``grads_step`` on ``state``, captured at its
+        first chunk (and again if the state's parts are replaced), with the
+        trained tensors' ``.grad`` pointing at the gradients it writes."""
+        parts = [state[k] for k in _GRAPH_PARTS]
+        if not captured or any(a is not b for a, b in zip(captured["parts"], parts)):
+            captured.clear()  # one graph, and its memory, at a time
+            fill_gate(state)
+            captured["graph"] = _capture(grads_step, state)
+            captured["parts"] = parts
+            captured["grads"] = [(p, p.grad) for p in _trained(state)]
+        for p, g in captured["grads"]:  # another chunk of the state may have moved them
+            if p.grad is not g:
+                p.grad = g
+        return captured["graph"]
 
     def train_chunk(state):
         with span("train.chunk"):
-            total = torch.zeros((), dtype=F32, device=dev)
+            graph = step_graph(state) if graphed else None
+            total.zero_()
             for _ in range(tc.poll_steps):
                 with span("train.step"):
-                    total = total + one_step(state)
+                    if graph is None:
+                        fill_gate(state)
+                        grads_step(state)
+                    else:
+                        with span("train.replay"):
+                            fill_gate(state)
+                            graph.replay()
+                        count("train.graph_steps")
+                    optim_step(state)
+                    state["step"] += 1
                 count("train.steps")
             with span("train.fetch"):
                 loss = float(total) / tc.poll_steps
         return state, loss
 
-    train_chunk.loss_fn = loss_fn  # one batch's loss, for tests that inject a batch
+    def batch_loss(state, batch, render_generator):
+        """One batch's loss at the state's step, for tests that inject a batch."""
+        fill_gate(state)
+        return loss_fn(state, batch, render_generator)
+
+    train_chunk.loss_fn = batch_loss
     return train_chunk
+
+
+#: The parts of a state that its captured gradients read: another object in
+#: any of them is another state, captured anew.
+_GRAPH_PARTS = ("field", "ext_rot", "ext_trans", "generator")
+
+
+def _capture(step, state):
+    """Capture ``step(state)`` as a CUDA graph, leaving the state as it was.
+
+    The step runs once first on a side stream: the kernels set their
+    shared-memory limits, cuBLAS makes its workspace and the shared
+    constants are made, none of which a capture may do. The generator then
+    goes back to where it was and the gradients to None, so that the capture
+    allocates them in the graph's pool and the first replay draws the
+    state's next step. The generator is registered with the graph: a replay
+    draws from its offset then and advances it by the step's draws, as the
+    eager step does."""
+    gen, dev = state["generator"], next(state["field"].parameters()).device
+    gen_before = gen.get_state()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step(state)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    gen.set_state(gen_before)
+    for opt in (state["opt_field"], state["opt_ext"]):
+        opt.zero_grad(set_to_none=True)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    # thread_local: the engine's prefetch thread works on the card, on its
+    # own stream, while the task fields train.
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        step(state)
+    return graph
 
 
 class _AddShards(torch.autograd.Function):

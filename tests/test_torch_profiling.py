@@ -264,6 +264,35 @@ def test_train_chunk_records_its_steps(sharded, monkeypatch):
     assert profiling.counters() == {"train.steps": 3}
 
 
+def test_cpu_chunk_of_the_fused_path_replays_no_graph(monkeypatch):
+    """The fused kernels' path (their plain versions on the CPU) takes the
+    eager step there: its phases under each step, no ``train.replay`` and
+    no ``train.graph_steps``."""
+    monkeypatch.setenv("D2R_PALLAS_TRAIN", "1")
+    h = w = 16
+    K = np.array([[14.4, 0, w / 2], [0, 14.4, h / 2], [0, 0, 1.0]])
+    images = torch.as_tensor(np.random.default_rng(1).integers(0, 255, (2, h, w, 4),
+                                                                dtype=np.uint8))
+    cfg = NGPConfig(aabb_min=TINY_FIELD["aabb_min"], aabb_max=TINY_FIELD["aabb_max"])
+    assert trainer.use_train_kernel(cfg)
+    tc = trainer.TrainConfig(n_steps=2, batch_rays=16, poll_steps=2)
+    chunk = trainer.make_train_chunk(cfg, tc, RenderSettings(n_coarse=4, n_fine=4, near=0.05,
+                                                             far=2.0),
+                                     images, torch.eye(4).repeat(2, 1, 1),
+                                     cameras.pixel_dirs(h, w, K, device="cpu"))
+    state = trainer.init_train_state(cfg, tc, 2, device="cpu")
+    with _cpu_profile():
+        state, loss = chunk(state)
+    assert np.isfinite(loss) and state["step"] == 2
+    spans = profiling.spans()
+    s = _by_name(spans)
+    assert "train.replay" not in s and len(s["train.step"]) == 2
+    for step in s["train.step"]:
+        assert [x["name"] for x in spans if x["parent"] == step["id"]] == \
+            ["train.sample", "train.forward", "train.backward", "train.optim"]
+    assert profiling.counters() == {"train.steps": 2}
+
+
 # ---------------------------------------------------------------------- card
 @pytest.mark.cuda
 def test_card_launch_and_kernel_fall_inside_their_span():

@@ -2,25 +2,38 @@
 (trunc_exp's gradient, trainable parameters), the training randomness, the
 SE(3) and colour helpers, the optimizer, the governor, one full training
 loss and its gradients on an injected batch, a short training run, and a
-build_vis_model snapshot that the JAX package loads."""
+build_vis_model snapshot that the JAX package loads. Also the step's
+shared device constants, and on a card (marked ``cuda``) the step's CUDA
+graph against the eager step, bit for bit; a machine without JAX runs only
+those cases:
+    python -m pytest --noconftest -m cuda tests/test_torch_train.py
+"""
 
+import dataclasses
 import json
+import math
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-from dream2real_tpu.nerf import trainer as jtrainer
-from dream2real_tpu.nerf.model import NGPConfig as JNGPConfig, init_ngp_params
-from dream2real_tpu.nerf.render import RenderSettings as JSettings
+try:  # the JAX package's side of the parity tests
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from dream2real_tpu.nerf import trainer as jtrainer
+    from dream2real_tpu.nerf.model import NGPConfig as JNGPConfig, init_ngp_params
+    from dream2real_tpu.nerf.render import RenderSettings as JSettings
+except ImportError:
+    jax = None
 from dream2real_tpu_torch.bridge import field_from_jax, field_to_numpy
+from dream2real_tpu_torch.device import F32, f32_constant
+from dream2real_tpu_torch.nerf import model as tmodel, train_kernel as ttk
 from dream2real_tpu_torch.nerf import trainer as ttrainer
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField, trunc_exp
-from dream2real_tpu_torch.nerf.render import RenderSettings, render_rays, sample_pdf
+from dream2real_tpu_torch.nerf.render import RenderSettings, ray_aabb, render_rays, sample_pdf
 
 torch.set_num_threads(1)
 
@@ -343,3 +356,135 @@ def test_build_vis_model_snapshot_loads_in_jax(tmp_path, monkeypatch):
     back = field_from_jax(ours, model.cfg, device="cpu")
     for k, p in back.named_parameters():
         assert torch.equal(p, getattr(model.field, k)), k
+
+
+# The benchmark's fg field box: corners no float32 holds exactly.
+BOX = NGPConfig(aabb_min=(0.05, -0.55, -0.15), aabb_max=(1.15, 1.55, 1.35))
+
+
+def test_f32_constant_is_made_once_from_the_float32_values():
+    vals = (0.05, -0.55, -0.15)
+    a = f32_constant(vals, "cpu")
+    assert a.dtype == F32 and torch.equal(a, torch.tensor(vals, dtype=F32))
+    assert f32_constant(list(vals), torch.device("cpu")) is a
+    assert f32_constant(np.asarray(vals), "cpu") is a
+    zero, neg = f32_constant((0.0,), "cpu"), f32_constant((-0.0,), "cpu")
+    assert zero is not neg and math.copysign(1.0, float(neg)) < 0
+
+
+def test_constants_first_made_in_inference_mode_serve_autograd():
+    """A render under ``torch.inference_mode`` may make a constant first;
+    training then saves it for backward."""
+    with torch.inference_mode():
+        freqs = tmodel.posenc_freqs(3, "cpu")
+        lo = f32_constant((0.25, -0.75, 0.125), "cpu")
+    x = torch.ones(3, requires_grad=True)
+    (x * freqs * lo).sum().backward()
+    assert not freqs.is_inference() and not lo.is_inference()
+    assert torch.equal(x.grad, freqs * lo)
+
+
+@pytest.mark.parametrize("name", ["field_box", "density_aabb", "ray_aabb", "posenc_freqs"])
+def test_step_constants_hold_the_per_call_values_and_are_cached(name):
+    """Each constant of the training step equals what its per-call
+    construction made, bit for bit, and a second call returns the same
+    tensor."""
+    def per_call():
+        if name == "field_box":
+            return torch.tensor(tuple(BOX.aabb_min) + tuple(BOX.aabb_max), dtype=F32)
+        if name == "posenc_freqs":
+            return torch.tensor(2.0, dtype=F32) ** torch.arange(10, dtype=F32) * \
+                torch.tensor(math.pi, dtype=F32)
+        return torch.cat([torch.as_tensor(BOX.aabb_min, dtype=F32),
+                          torch.as_tensor(BOX.aabb_max, dtype=F32)])
+
+    def cached():
+        if name == "field_box":
+            return ttk.field_box(BOX, "cpu")
+        if name == "posenc_freqs":
+            return tmodel.posenc_freqs(10, "cpu")
+        if name == "density_aabb":
+            return tmodel._aabb(BOX, "cpu")
+        return tuple(f32_constant(b, "cpu") for b in (BOX.aabb_min, BOX.aabb_max))
+
+    first, again = cached(), cached()
+    flat = torch.cat(first) if isinstance(first, tuple) else first
+    assert flat.dtype == F32 and torch.equal(flat, per_call())
+    assert all(a is b for a, b in zip(first, again)) if isinstance(first, tuple) \
+        else first is again
+    if name == "ray_aabb":  # the slab test on the cached corners, as it was per call
+        rng = np.random.default_rng(0)
+        o = torch.tensor(rng.uniform(-1, 2, (64, 3)), dtype=F32)
+        d = torch.tensor(rng.uniform(-1, 1, (64, 3)), dtype=F32)
+        lo, hi = per_call()[:3], per_call()[3:]
+        safe = torch.where(d.abs() < 1e-9, torch.full_like(d, 1e-9), d)
+        want = (torch.minimum((lo - o) / safe, (hi - o) / safe).amax(-1),
+                torch.maximum((lo - o) / safe, (hi - o) / safe).amin(-1))
+        got = ray_aabb(o, d, BOX.aabb_min, BOX.aabb_max)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimize_extrinsics", [False, True], ids=["fg_task", "extrinsics"])
+def test_graph_step_is_the_eager_step_bit_for_bit(optimize_extrinsics, monkeypatch):
+    """The fg-task chunk on the card's graph path against the same chunk
+    through a one-device mesh (the eager step, bit for bit the unsharded
+    one), from one seed: 5 chunks of one step, taken in turn from two chunk
+    functions of the state (each with its own graph and gradients), then a
+    chunk of 3. The task losses, Adam's first moments, the parameters, the
+    extrinsics and the generator come out identical, and every step of the
+    graph path is a replay. With ``optimize_extrinsics`` the gate opens at
+    step 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the step's graph and K5-K7")
+    from torch.profiler import ProfilerActivity, profile
+
+    from dream2real_tpu_torch.ops import cameras
+    from dream2real_tpu_torch.parallel import mesh as tmesh
+    from dream2real_tpu_torch.utils import profiling
+
+    monkeypatch.setenv("D2R_PALLAS_TRAIN", "1")
+    dev = torch.device("cuda", 0)
+    rgba, depths, poses, K = _scene(n_img=4, h=36, w=48, seed=5)
+    n_img, h, w = rgba.shape[:3]
+    cfg = NGPConfig(aabb_min=(0.0, -0.6, -0.1), aabb_max=(1.1, 0.6, 0.9))
+    assert ttrainer.use_train_kernel(cfg)
+    data = dict(images_rgba=torch.as_tensor(rgba, device=dev),
+                init_poses=torch.as_tensor(poses, device=dev),
+                dirs_cam=cameras.pixel_dirs(h, w, K, device=dev),
+                depths=torch.as_tensor(depths, device=dev),
+                fg_pixels=torch.as_tensor(np.argwhere(rgba[..., 3] > 127), device=dev))
+    settings = RenderSettings(n_coarse=32, n_fine=32, near=0.05, far=2.0)
+    runs = []
+    for sharding in (None, tmesh.pose_sharding(tmesh.data_mesh(1))):
+        tc = ttrainer.TrainConfig(n_steps=40, batch_rays=1024, poll_steps=1, seed=2**31 + 7,
+                                  optimize_extrinsics=optimize_extrinsics, ext_start_step=3)
+        chunks = [ttrainer.make_train_chunk(cfg, tc, settings, ray_sharding=sharding, **data)
+                  for _ in range(2)]
+        state = ttrainer.init_train_state(cfg, tc, n_img, device=dev)
+        profiling.reset()
+        losses = []
+        with profile(activities=[ProfilerActivity.CPU]):
+            for k, poll in enumerate((1, 1, 1, 1, 1, 3)):
+                tc.poll_steps = poll
+                state, loss = chunks[k % 2](state)
+                losses.append(loss)
+        torch.cuda.synchronize()
+        opt = state["opt_field"]
+        runs.append({
+            "losses": losses, "step": state["step"], "counters": profiling.counters(),
+            "params": [p.detach().clone() for p in state["field"].parameters()],
+            "exp_avg": [opt.state[p]["exp_avg"].clone() for p in state["field"].parameters()],
+            "ext": [state[k].detach().clone() for k in ("ext_rot", "ext_trans")],
+            "generator": state["generator"].get_state()})
+    graph, eager = runs
+    assert graph["step"] == eager["step"] == 8
+    assert graph["counters"] == {"train.steps": 8, "train.graph_steps": 8}
+    assert eager["counters"] == {"train.steps": 8}
+    assert all(math.isfinite(x) for x in graph["losses"])
+    assert graph["losses"] == eager["losses"]
+    for key in ("params", "exp_avg", "ext"):
+        assert all(torch.equal(a, b) for a, b in zip(graph[key], eager[key])), key
+    assert torch.equal(graph["generator"], eager["generator"])
+    moved = float(graph["ext"][0].abs().sum())
+    assert moved > 0 if optimize_extrinsics else moved == 0

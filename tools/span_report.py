@@ -8,7 +8,8 @@ at each gap's midpoint, and how the spans and the profiler's events line up
 at the window's edges. For a scoring cell also each block's device time
 split into the background render, the clip groups' render and tower, and
 the rest, with the block's idle time by span; for a training cell the
-kernels and launch calls a step. Run from the repo root on one GPU:
+kernels and launch calls a step, and the CUDA runtime calls inside its
+steps by name (copies and synchronisations included). Run from the repo root on one GPU:
 
     PYTHONPATH=. python3 tools/span_report.py --workload field-mlp256.fg_task --seed 7 [--out f.json]
 """
@@ -16,6 +17,7 @@ kernels and launch calls a step. Run from the repo root on one GPU:
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 from collections import defaultdict
@@ -66,6 +68,20 @@ def scoring_blocks(spans: list, trace, line, at) -> list:
     return out
 
 
+def step_calls(spans: list, trace) -> dict:
+    """The CUDA runtime calls made inside ``train.step`` spans, by name, a
+    step: the launches, and the copies and synchronisations that drain the
+    stream."""
+    steps = sorted((s["start_ns"] * 1e-9, s["end_ns"] * 1e-9) for s in spans
+                   if s["name"] == "train.step")
+    calls: dict = defaultdict(int)
+    for name, t, _ in trace.host:
+        i = bisect.bisect_right(steps, (t, float("inf"))) - 1
+        if i >= 0 and t <= steps[i][1]:
+            calls[name] += 1
+    return {n: c / len(steps) for n, c in sorted(calls.items())} if steps else {}
+
+
 def report(ctx) -> dict:
     """Run the traced cell of ``ctx`` and read its window."""
     from benchmark import harness, run
@@ -109,7 +125,7 @@ def report(ctx) -> dict:
         rep.update(kernels_per_step=len(kernels) / lc["steps"],
                    launch_call_names=sorted({n for n, _, _ in trace.host if "Launch" in n}),
                    launch_calls_per_step=sum("LaunchKernel" in n for n, _, _ in trace.host)
-                   / lc["steps"])
+                   / lc["steps"], host_calls_per_step=step_calls(spans, trace))
     else:
         rep["blocks"] = scoring_blocks(spans, trace, line, _spans.at)
     return rep
