@@ -2,21 +2,36 @@
 port of dream2real_tpu/nerf/hashgrid.py).
 
 One packed (L, T, F) f32 table; levels whose dense grid fits in T entries
-index densely, the others hash, chosen per level from the config. The
-uint32 hash is computed in int64: ``x * prime``, XOR, then ``& (T - 1)``;
-the low bits of the int64 product equal those of the uint32 product, so the
-indices are exact. The gradient reaches the table through autograd of the
-gather (``index_select``, whose gradient is a scatter-add); there is no
-kernel.
+index densely, the others hash, chosen per level from the config. On the
+card ``hash_encode`` launches H1 (``csrc/hashgrid.cu``) through an autograd
+function: the features come back in bf16, each rounded once from its f32
+sum, and the backward adds the table's gradient with atomics (no positions
+gradient). On the CPU it runs ``hash_encode_plain``, the kernel's twin: the
+uint32 hash computed in int64 (``x * prime``, XOR, then ``& (T - 1)``; the
+low bits of the int64 product equal those of the uint32 product, so the
+indices are exact), f32 features, and the table's gradient through autograd
+of the gather (``index_select``, whose gradient is a scatter-add).
+
+While a profiler runs, each encode on the card and each backward through it
+is a device span ``field.hash_encode`` (``utils/profiling.py``; not inside
+a CUDA graph's capture), as is each plain encode. ``hash_encode.points``
+counts the points the host sent through the encoding, ``.launches`` and
+``.backward_launches`` the kernel's launches.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from dream2real_tpu_torch import build
+from dream2real_tpu_torch.device import shared_constant
+from dream2real_tpu_torch.utils.profiling import span
 
 # instant-ngp's spatial hash primes (coherent in x).
 _PRIMES = (1, 2654435761, 805459861)
@@ -66,8 +81,11 @@ def init_hash_table(cfg: HashGridConfig, generator: torch.Generator, device=None
     return ((u * 2.0 - 1.0) * 1e-4).to(device if device is not None else u.device)
 
 
-# The 8 cube-corner offsets (x fastest): (8, 3).
-_CORNERS = [[i & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)]
+def _corners(device) -> torch.Tensor:
+    """The 8 cube-corner offsets (x fastest), (8, 3) int64: a shared constant
+    (``device.shared_constant``)."""
+    return shared_constant("hash_corners", device, lambda dev: torch.tensor(
+        [[i & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)], dtype=torch.int64, device=dev))
 
 
 def _corner_indices(xyz: torch.Tensor, res: int, dense: bool, table_size: int) -> torch.Tensor:
@@ -81,16 +99,11 @@ def _corner_indices(xyz: torch.Tensor, res: int, dense: bool, table_size: int) -
     return idx & (table_size - 1)
 
 
-def hash_encode(positions01: torch.Tensor, table: torch.Tensor,
-                cfg: HashGridConfig) -> torch.Tensor:
-    """Encode positions in [0, 1]^3 -> (..., L * F) features.
-
-    positions01: (..., 3) f32, clamped to [0, 1] (the caller masks samples
-    outside the field's box). table: (L, T, F) f32.
-    """
-    batch_shape = positions01.shape[:-1]
-    pos = torch.clamp(positions01.reshape(-1, 3), 0.0, 1.0)
-    corners = torch.tensor(_CORNERS, dtype=torch.int64, device=pos.device)
+def hash_encode_plain(pos: torch.Tensor, table: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
+    """H1's plain version: (N, 3) positions in [0, 1]^3 (clamped here) and
+    the (L, T, F) f32 table -> (N, L * F) f32 features."""
+    pos = torch.clamp(pos, 0.0, 1.0)
+    corners = _corners(pos.device)
     is_corner = corners.to(torch.bool)[None]
     feats = []
     for lvl, (res, dense) in enumerate(zip(cfg.level_resolutions().tolist(),
@@ -105,4 +118,88 @@ def hash_encode(positions01: torch.Tensor, table: torch.Tensor,
         cw = torch.where(is_corner, w[:, None, :], 1.0 - w[:, None, :])
         weights = cw[..., 0] * cw[..., 1] * cw[..., 2]
         feats.append((f * weights[..., None]).sum(dim=1))
-    return torch.stack(feats, dim=1).reshape(batch_shape + (cfg.out_dim,))
+    return torch.stack(feats, dim=1).reshape(pos.shape[0], cfg.out_dim)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _launch(symbol: str, pos, data, cfg: HashGridConfig, out) -> None:
+    """One H1 launch on CUDA tensors: ``data`` is the table (forward) or
+    the features' gradient (backward), ``out`` the features or the
+    table's gradient."""
+    fn = getattr(build.load("hashgrid"), symbol)
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    levels = cfg.n_levels
+    res = (ctypes.c_int * levels)(*cfg.level_resolutions().tolist())
+    dense = (ctypes.c_int * levels)(*cfg.level_is_dense().tolist())
+    with torch.cuda.device(pos.device):
+        err = fn(build.ptr(pos), build.ptr(data), pos.shape[0], levels, cfg.n_features,
+                 cfg.log2_hashmap_size, ctypes.cast(res, _P), ctypes.cast(dense, _P),
+                 build.ptr(out), build.stream_ptr(pos.device))
+    build.check(err, symbol)
+
+
+def _encode_span():
+    """The span of one encode or backward on the card; none while a CUDA
+    graph is being captured (its timing events cannot be)."""
+    if torch.cuda.is_current_stream_capturing():
+        return contextlib.nullcontext()
+    return span("field.hash_encode", device=True)
+
+
+class _HashEncode(torch.autograd.Function):
+    """H1's forward, and its backward into the table's gradient."""
+
+    @staticmethod
+    def forward(ctx, pos, table, cfg):
+        out = torch.empty(pos.shape[0], cfg.out_dim, dtype=torch.bfloat16, device=pos.device)
+        with _encode_span():
+            _launch("d2r_hash_fwd", pos, table, cfg, out)
+        hash_encode.launches += 1
+        ctx.cfg = cfg
+        ctx.table_shape = table.shape
+        ctx.save_for_backward(pos)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[1]:
+            return None, None, None
+        (pos,) = ctx.saved_tensors
+        g = g.to(torch.bfloat16).contiguous()
+        dtable = torch.zeros(ctx.table_shape, dtype=torch.float32, device=g.device)
+        with _encode_span():
+            _launch("d2r_hash_bwd", pos, g, ctx.cfg, dtable)
+        hash_encode.backward_launches += 1
+        return None, dtable, None
+
+
+def hash_encode(positions01: torch.Tensor, table: torch.Tensor,
+                cfg: HashGridConfig) -> torch.Tensor:
+    """Encode positions in [0, 1]^3 -> (..., L * F) features: bf16 from H1
+    on the card, f32 from the plain version on the CPU.
+
+    positions01: (..., 3) f32, clamped to [0, 1] (the caller masks samples
+    outside the field's box). table: (L, T, F) f32.
+    """
+    batch_shape = positions01.shape[:-1]
+    pos = positions01.reshape(-1, 3)
+    hash_encode.points += pos.shape[0]
+    if not pos.is_cuda:
+        with span("field.hash_encode"):
+            out = hash_encode_plain(pos, table, cfg)
+    else:
+        want = (cfg.n_levels, cfg.table_size, cfg.n_features)
+        if pos.dtype != torch.float32 or table.dtype != torch.float32:
+            raise TypeError(f"hash_encode: float32 positions and table, got {pos.dtype}, "
+                            f"{table.dtype}")
+        if tuple(table.shape) != want or not table.is_contiguous() or table.device != pos.device:
+            raise ValueError(f"hash_encode: a contiguous {want} table on {pos.device}, got "
+                             f"{tuple(table.shape)} on {table.device}")
+        out = _HashEncode.apply(pos.contiguous(), table, cfg)
+    return out.reshape(batch_shape + (cfg.out_dim,))
+
+
+hash_encode.points = hash_encode.launches = hash_encode.backward_launches = 0

@@ -5,10 +5,10 @@ Two field types, as in the reference:
 - ``field_type="mlp"`` (the default): frequency-encoded positions -> width x
   depth MLP trunk -> (log-density, geo features);
 - ``field_type="hashgrid"``: the multiresolution hash encoding
-  (nerf/hashgrid.py) -> bias-free density layers -> (log-density, geo
-  features). The march and training kernels cover the mlp field only, so
-  this field renders through ``render.render_rays`` and trains through
-  autograd, as in the JAX package.
+  (nerf/hashgrid.py; H1 on the card) -> bias-free density layers ->
+  (log-density, geo features). The march and training kernels cover the
+  mlp field only, so this field renders through ``render.render_rays`` and
+  trains through autograd around H1, as the JAX package trains it.
 
 Both feed an SH-conditioned colour head. Numerics follow the reference:
 bf16 matmul inputs with f32 accumulation, bf16 casts between layers, f32

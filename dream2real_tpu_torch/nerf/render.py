@@ -83,13 +83,33 @@ def sample_pdf(ts: torch.Tensor, weights: torch.Tensor, n_samples: int,
     return lo + (u - cdf_lo) / denom * (hi - lo)
 
 
+class _CumprodPositive(torch.autograd.Function):
+    """``torch.cumprod`` over the last dim of factors that are never zero,
+    with autograd's gradient for that case (the reversed cumulative sum of
+    grad * output, over the input), bit for bit: without autograd's check
+    for zero factors, whose ``.item()`` waits for the device and cannot be
+    captured in a CUDA graph."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def _composite(sigma, rgb, ts, d_norm, min_transmittance):
     """Front-to-back compositing. sigma (..., S), rgb (..., S, 3), ts (..., S).
     Returns premultiplied rgb (..., 3), alpha, z-depth, weights (..., S)."""
     deltas = torch.diff(ts, dim=-1)
     deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], 1e2)], dim=-1)
     alpha = 1.0 - torch.exp(-sigma * deltas * d_norm[..., None])
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    # 1 - alpha = exp(-x) >= 0, so every factor is at least 1e-10.
+    trans = _CumprodPositive.apply(1.0 - alpha + 1e-10)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     weights = alpha * trans
     weights = torch.where(trans < min_transmittance, torch.zeros_like(weights), weights)
@@ -131,13 +151,14 @@ def render_rays(
     ts_c = t0[..., None] + (t1 - t0)[..., None] * frac
 
     if settings.n_fine > 0:
-        pos_c = origins[..., None, :] + dirs[..., None, :] * ts_c[..., None]
-        sigma_c, _ = density_fn(field, pos_c)
-        _, _, _, w_c = _composite(
-            sigma_c, torch.zeros(sigma_c.shape + (3,), device=dirs.device), ts_c,
-            d_norm, settings.min_transmittance,
-        )
-        ts_f = sample_pdf(ts_c, w_c.detach(), settings.n_fine, generator)
+        with torch.no_grad():  # the fine draws read the coarse weights as constants
+            pos_c = origins[..., None, :] + dirs[..., None, :] * ts_c[..., None]
+            sigma_c, _ = density_fn(field, pos_c)
+            _, _, _, w_c = _composite(
+                sigma_c, torch.zeros(sigma_c.shape + (3,), device=dirs.device), ts_c,
+                d_norm, settings.min_transmittance,
+            )
+        ts_f = sample_pdf(ts_c, w_c, settings.n_fine, generator)
         ts_all = torch.sort(torch.cat([ts_c, ts_f], dim=-1), dim=-1).values
     else:
         ts_all = ts_c

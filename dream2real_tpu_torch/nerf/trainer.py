@@ -18,7 +18,8 @@ Per step, as the reference:
 
 The render is ``render_rays_train`` (K5 + K6 + K7 on the card) when the field
 is the flagship one, else, or with ``D2R_PALLAS_TRAIN=0``, the plain
-differentiable ``render_rays``. Randomness comes from the state's
+differentiable ``render_rays`` (for the hash-grid field around H1, the hash
+encoding's kernel, on the card). Randomness comes from the state's
 ``torch.Generator`` (seeded by ``TrainConfig.seed``); it draws other numbers
 than the reference's PRNG keys.
 
@@ -41,21 +42,27 @@ reference's ``add_decayed_weights`` + ``adam`` chain, which is what
 ``torch.optim.Adam(weight_decay=...)`` computes (``AdamW`` would not). The
 extrinsics take Adam at ``ext_lr``.
 
-On one card, with the fused kernels, the step's gradients are a CUDA graph:
-the chunk that first meets a state warms them up on a side stream, puts the
-generator back and captures the draws, the loss, the backward through K5-K7
-and the task-loss sum; every step then fills the extrinsics gate, replays
-the graph and runs both optimizers as the eager step does. A replay is the
-eager step bit for bit: the same kernels, the generator registered with the
-graph, and the same optimizer step on the gradients the graph leaves. The
-CPU, the sharded step and the plain render take the eager step.
+On one card, with the fused kernels or a hash-grid field (unless
+``D2R_PALLAS_TRAIN=0``), the step's gradients are a CUDA graph: the chunk
+that first meets a state warms them up on a side stream, puts the generator
+back and captures the draws, the loss, the backward through K5-K7 (or
+through the plain render and H1) and the task-loss sum; every step then
+fills the extrinsics gate, replays the graph and runs both optimizers as the
+eager step does. A replay is the eager step bit for bit (for the hash-grid
+field up to H1's atomics, whose sums round in another order each run): the
+same kernels, the generator registered with the graph, and the same
+optimizer step on the gradients the graph leaves. The CPU, the sharded step
+and the flagship field's plain render take the eager step.
 
 While a profiler runs (``utils/profiling.py``), a chunk is a ``train.chunk``
 span holding a ``train.step`` span a step and ``train.fetch``; an eager step
 holds ``train.sample``, ``train.forward``, ``train.backward`` and
 ``train.optim`` (a sharded step's ``train.backward`` holds the shards'
 forwards too), a replayed one ``train.replay`` and ``train.optim``.
-``train.steps`` counts the steps, ``train.graph_steps`` the replayed ones.
+``train.steps`` counts the steps, ``train.graph_steps`` the replayed ones,
+and ``train.encoded_points`` the points each step sends through the hash
+encoding (``hash_encode.points`` over the step, or over the capture of a
+replayed one; a hash-grid field only).
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ import warnings
 import torch
 
 from dream2real_tpu_torch.device import F32, WEIGHT_CAST_HOOK, resolve_device
+from dream2real_tpu_torch.nerf.hashgrid import hash_encode
 from dream2real_tpu_torch.nerf.model import NGPConfig, density_fn, init_ngp_params
 from dream2real_tpu_torch.nerf.render import RenderSettings, render_rays
 from dream2real_tpu_torch.nerf.train_kernel import render_rays_train, supports_training
@@ -104,6 +112,14 @@ class TrainConfig:
 def use_train_kernel(cfg: NGPConfig) -> bool:
     """The fused kernels train the flagship field unless D2R_PALLAS_TRAIN=0."""
     return os.environ.get("D2R_PALLAS_TRAIN") != "0" and supports_training(cfg)
+
+
+def use_step_graph(cfg: NGPConfig) -> bool:
+    """Whether a step on one card is a CUDA graph: the kernels' step (K5-K7
+    for the flagship field, the plain render around H1 for the hash-grid
+    one) unless D2R_PALLAS_TRAIN=0."""
+    return os.environ.get("D2R_PALLAS_TRAIN") != "0" and (
+        supports_training(cfg) or cfg.field_type == "hashgrid")
 
 
 def cosine_lr(tc: TrainConfig, step: int) -> float:
@@ -345,9 +361,14 @@ def make_train_chunk(
                 p.grad = extra if p.grad is None else p.grad + extra
         return task_loss / n
 
+    # The points the last grads_step sent through the hash encoding: a
+    # replayed step encodes what its capture did.
+    encoded = {"points": 0}
+
     def grads_step(state):
         """The step's draws, loss and gradients, left in the trained tensors'
         ``.grad``, its task loss added into ``total``: called, or captured."""
+        start = hash_encode.points
         state["opt_field"].zero_grad(set_to_none=True)
         state["opt_ext"].zero_grad(set_to_none=True)
         gen = state["generator"]
@@ -362,6 +383,7 @@ def make_train_chunk(
             with span("train.backward"):
                 task_loss = backward_sharded(state, batch, gen)
         total.add_(task_loss)
+        encoded["points"] = hash_encode.points - start
 
     def fill_gate(state):
         if tc.optimize_extrinsics:
@@ -376,9 +398,9 @@ def make_train_chunk(
             if tc.optimize_extrinsics:
                 state["opt_ext"].step()
 
-    # The flagship field's gradients on one card are replayed as a CUDA
-    # graph: the sharded step and the plain render stay eager.
-    graphed = dev.type == "cuda" and mesh is None and use_kernel
+    # The gradients on one card are replayed as a CUDA graph: the sharded
+    # step and D2R_PALLAS_TRAIN=0 stay eager.
+    graphed = dev.type == "cuda" and mesh is None and use_step_graph(cfg)
     captured: dict = {}
 
     def step_graph(state):
@@ -414,6 +436,8 @@ def make_train_chunk(
                     optim_step(state)
                     state["step"] += 1
                 count("train.steps")
+                if encoded["points"]:
+                    count("train.encoded_points", encoded["points"])
             with span("train.fetch"):
                 loss = float(total) / tc.poll_steps
         return state, loss
