@@ -28,7 +28,11 @@ Phases (any failure raises; the exit code is then nonzero):
                 GEMM also alone, element by element), the tower's GEMM
                 epilogues (qkv bias, fc1 + QuickGELU, fc2 / proj + residual)
                 at the vision tower's shapes within one bf16 step of their
-                plain versions, beside torch.matmul + the PyTorch glue, and
+                plain versions, beside torch.matmul + the PyTorch glue, L1
+                (the LayerNorm row pass ln_rows at 18,464 x 1,024 against
+                layer_norm within one bf16 step, and as fc1's prologue,
+                ln_fc1, bit for bit fc1's GEMM on its rows; beside
+                F.layer_norm), and
                 the double-rounding witness (one rounding of acc + b), K5-K8
                 at one training
                 batch's (8192 rays, 32 coarse + 64 drawn samples, seeded
@@ -82,7 +86,7 @@ Phases (any failure raises; the exit code is then nonzero):
                 ViT-L/14-336, hash-tokenized captions through encode_text
                 (K4), 512 poses through make_imagine_and_score (fg_crop 128,
                 clip_batch 32), smoothed [16, 32, 1, 1, 1, 1] argmax; launch
-                counters checked (the tower GEMMs' too); one clip group
+                counters checked (the tower's LayerNorms and GEMMs too); one clip group
                 rendered under torch.cuda.set_sync_debug_mode("error"), which
                 raises on any call that waits for the device; K1 timed on the
                 trained field and held
@@ -2029,6 +2033,52 @@ def main() -> int:
         log(f"  tower proj GEMM: kernel "
             f"{time_ms(lambda: att.linear_bias_then_resid(*proj_args), 10, QUEUED):.4f} ms, "
             f"matmul + glue {time_ms(lambda: x_t + glue(x_t, 'proj'), 10, QUEUED):.4f} ms")
+        # L1, the LayerNorm row pass (ln_rows) at the main path's shape (32 x
+        # 577 rows of 1024), alone and as fc1's prologue (ln_fc1). Alone it is
+        # held against layer_norm within one bf16 step (2^-7 |plain|) plus
+        # 2^-16: its row sums run in another order than torch's, which moves
+        # a bf16 rounding now and then, and an output that nearly cancels to
+        # zero by more than its own step. ln_fc1 is the GEMM on the row pass's
+        # own rows, bit for bit (the GEMM is held above). Bound: the bf16 rows
+        # read and written once (75.6 MB), and for ln_fc1 fc1's own bound on
+        # top. Library: torch.nn.functional.layer_norm on the bf16 rows (its
+        # gain and bias in bf16), then matmul + glue for fc1.
+        g_l = 1.0 + 0.1 * torch.randn(W, generator=gen, device=dev)
+        b_l = 0.1 * torch.randn(W, generator=gen, device=dev)
+        g_lb, b_lb = g_l.to(bf), b_l.to(bf)
+        xn_k, xn_p = att.ln_rows(x_t, g_l, b_l), att.layer_norm(x_t, g_l, b_l)
+        ln_excess = float(((xn_k.float() - xn_p.float()).abs() - 2.0**-7 * xn_p.float().abs()
+                           - 2.0**-16).max())
+        ln_share = float((xn_k != xn_p).float().mean())
+        ln_err = float((xn_k.float() - xn_p.float()).abs().max())
+        log(f"  ln_rows: max |kernel - plain| {ln_err:.4e}, {ln_share:.2e} of the elements off "
+            f"the plain version, worst excess over one bf16 step + 2^-16 {ln_excess:.3e} "
+            f"(allowed 0)")
+        if not ln_excess <= 0.0:
+            raise AssertionError(f"ln_rows: kernel vs plain exceeds one bf16 step by {ln_excess}")
+        fc1_args = (x_t, tw["fc1"], tb["fc1"], g_l, b_l)
+        fc1_k = att.ln_fc1(*fc1_args)
+        if not torch.equal(fc1_k, att.linear_bias_gelu(xn_k, tw["fc1"], tb["fc1"])):
+            raise AssertionError("ln_fc1 is not fc1's GEMM on the row pass's own rows")
+        rows_bytes = 2 * B * T * W * 2 + 2 * W * 4
+        record(
+            "ln_rows (L1)", ATT_SRC, f"{CLIP_REF}:93", ln_err,
+            time_ms(lambda: att.ln_rows(x_t, g_l, b_l), 10, QUEUED),
+            time_ms(lambda: att.layer_norm(x_t, g_l, b_l), 3), 0.0, rows_bytes,
+            time_ms(lambda: F.layer_norm(x_t, (W,), g_lb, b_lb, 1e-5), 10, QUEUED),
+        )
+        record(
+            "ln_fc1 (L1 + fc1)", ATT_SRC, f"{CLIP_REF}:213",
+            float((fc1_k.float() - att.ln_fc1_plain(*fc1_args).float()).abs().max()),
+            time_ms(lambda: att.ln_fc1(*fc1_args), 10, QUEUED),
+            time_ms(lambda: att.ln_fc1_plain(*fc1_args), 3),
+            2.0 * B * T * W * 4 * W,
+            rows_bytes + B * T * (W + 4 * W) * 2 + W * 4 * W * 2 + 4 * W * 4,
+            time_ms(lambda: gelu((torch.matmul(F.layer_norm(x_t, (W,), g_lb, b_lb, 1e-5),
+                                               tw["fc1"]).float() + tb["fc1"]).to(bf)),
+                    10, QUEUED),
+        )
+        del xn_k, xn_p, fc1_k
         # The double-rounding witness: the row [1, 1] against the column
         # [1, 2^-8 - 2^-16] with a bias of 2^-9. One rounding of acc + b gives
         # 1 + 2^-7; the product rounded to bf16 first, then the bias, gives 1.
@@ -2494,18 +2544,27 @@ def main() -> int:
     wrappers = {"march (K1)": mk.march, "ln_qkv_attention (K2)": att.mha_ln_qkv,
                 "ln_qkv_gemm (inside K2)": att.ln_qkv,
                 "attention_qkv (K3)": att.mha_qkv, "attention_causal (K4)": att.mha,
+                "ln_rows (L1)": att.ln_rows, "ln_fc1 (L1 + fc1)": att.ln_fc1,
                 "tower_qkv_gemm (bias)": att.linear_bias,
                 "tower_fc1_gemm (bias_gelu)": att.linear_bias_gelu,
                 "tower_fc2_gemm (bias_then_resid)": att.linear_bias_then_resid}
 
-    def tower_launches(groups_, text=1):
-        """The tower GEMMs' launches for `groups_` clip groups and `text` runs
-        of the text tower: a vision group's last block takes its qkv alone
-        (bias), every block its fc1 (bias_gelu) and its proj and fc2
-        (bias_then_resid); a text block all four."""
+    def tower_launches(groups_, text=1, split=False):
+        """The tower's LayerNorm and GEMM launches for `groups_` clip groups
+        and `text` runs of the text tower. LN1 and qkv (ln_qkv): K2's in a
+        vision group's first 23 blocks, the last block's, every text
+        block's; under D2R_ATTN_FUSED_LN=0 (`split`) the 23 run the row pass
+        (ln_rows) and the qkv GEMM (bias) apart. LN2 and fc1 (ln_fc1) in
+        every block, proj and fc2 (bias_then_resid) too; ln_pre and ln_post,
+        ln_final (ln_rows). No LayerNorm runs plain, so fc1 never runs
+        alone."""
         L, Lt = 24, 12
-        return {"tower_qkv_gemm (bias)": groups_ + Lt * text,
-                "tower_fc1_gemm (bias_gelu)": L * groups_ + Lt * text,
+        k2 = (L - 1) * groups_
+        return {"ln_qkv_gemm (inside K2)": (0 if split else k2) + groups_ + Lt * text,
+                "tower_qkv_gemm (bias)": k2 if split else 0,
+                "ln_rows (L1)": 2 * groups_ + text + (k2 if split else 0),
+                "ln_fc1 (L1 + fc1)": L * groups_ + Lt * text,
+                "tower_fc1_gemm (bias_gelu)": 0,
                 "tower_fc2_gemm (bias_then_resid)": 2 * L * groups_ + 2 * Lt * text}
     for fn in wrappers.values():
         fn.launches = 0
@@ -2571,8 +2630,6 @@ def main() -> int:
         raise AssertionError(f"K2 launched {launches['ln_qkv_attention (K2)']} != 23 x {groups}")
     if launches["attention_qkv (K3)"] != 23 * groups:
         raise AssertionError("K3 (K2's attention half) launch count is off")
-    if launches["ln_qkv_gemm (inside K2)"] != 23 * groups:
-        raise AssertionError("K2's qkv GEMM launch count is off")
     if launches["attention_causal (K4)"] != clip_cfg.text_layers:
         raise AssertionError(f"K4 launched {launches['attention_causal (K4)']} != 12")
     want_tower = tower_launches(groups)
@@ -2702,8 +2759,9 @@ def main() -> int:
     k_scores, k_renders, k_emb, k_logits = run_group(txt_emb)
     with ExitStack() as stack:
         stack.enter_context(mock.patch.object(mk, "march", mk.march_plain_live))
-        for name_p in ("linear_bias", "linear_bias_gelu", "linear_bias_then_resid"):
+        for name_p in ("linear_bias", "linear_bias_then_resid", "ln_qkv", "ln_fc1"):
             stack.enter_context(mock.patch.object(cm, name_p, getattr(att, name_p + "_plain")))
+        stack.enter_context(mock.patch.object(cm, "ln_rows", att.layer_norm))
         stack.enter_context(mock.patch.object(
             cm, "mha_ln_qkv", lambda *a: att.mha_ln_qkv_plain(*a, att._maxsub())))
         stack.enter_context(mock.patch.object(
@@ -2860,7 +2918,6 @@ def main() -> int:
         # One K1 launch a clip group and one for best_render.png; K2 (and
         # K3 beneath it) in 23 blocks a group; K4 once a text layer.
         want_launches = {"march (K1)": groups5 + 1, "ln_qkv_attention (K2)": 23 * groups5,
-                         "ln_qkv_gemm (inside K2)": 23 * groups5,
                          "attention_qkv (K3)": 23 * groups5,
                          "attention_causal (K4)": clip_cfg.text_layers,
                          **tower_launches(groups5)}
@@ -2914,8 +2971,9 @@ def main() -> int:
     finally:
         os.environ["D2R_ATTN_FUSED_LN"] = "1"
     log(f"  D2R_ATTN_FUSED_LN=0, 256 poses in one slab: launches {launches0}")
+    want0 = tower_launches(256 // clip_batch, split=True)
     if (info0["n_slabs"] != 1 or launches0["ln_qkv_attention (K2)"] != 0
-            or launches0["ln_qkv_gemm (inside K2)"] != 0
+            or {k: launches0[k] for k in want0} != want0
             or launches0["attention_qkv (K3)"] != 23 * (256 // clip_batch)):
         raise AssertionError(f"grid scorer, split attention path: {info0}, {launches0}")
     # The same grid through phase P's validity check (its models: the lazy

@@ -9,7 +9,13 @@ stream, f32 LayerNorm and softmax, QuickGELU on the bf16-rounded fc1 output.
 Every biased layer (qkv on the split path, the out-projection, fc1, fc2)
 runs on the port's GEMM, whose epilogue adds the f32 bias to the f32
 accumulator and rounds where the reference does (ops/attention.py's
-``linear_bias*``); the patchify, which has no bias, is a bf16 matmul.
+``linear_bias*``); the patchify, which has no bias, is a bf16 matmul. Every
+LayerNorm runs on the card's row pass: alone (``ln_rows``: ln_pre, ln_post,
+ln_final, the split path's LN1) or as the prologue of the qkv GEMM
+(``ln_qkv``: K2's LN1, the last vision block's, the text tower's) or of fc1
+(``ln_fc1``); on the CPU these wrappers run the plain ``layer_norm``. While
+a profiler runs each one counts as ``clip.ln_rows`` (on the card) or
+``clip.ln_plain`` (on the CPU).
 """
 
 from __future__ import annotations
@@ -24,14 +30,16 @@ from torch import nn
 
 from dream2real_tpu_torch.device import BF16, F32, dot_bf16, dot_exact, resolve_device
 from dream2real_tpu_torch.ops.attention import (
-    layer_norm,
     linear_bias,
-    linear_bias_gelu,
     linear_bias_then_resid,
+    ln_fc1,
+    ln_qkv,
+    ln_rows,
     mha,
     mha_ln_qkv,
     mha_qkv,
 )
+from dream2real_tpu_torch.utils.profiling import count
 
 
 class CLIPConfig(NamedTuple):
@@ -153,30 +161,40 @@ def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
     return t.reshape(B, T, n_heads, W // n_heads).permute(0, 2, 1, 3).contiguous()
 
 
-def _attn(xn: torch.Tensor, blk: Block, n_heads: int, causal: bool) -> torch.Tensor:
-    """LN'd x -> attention output before the out-projection (bf16).
-    Bidirectional: K3 on the projection layout; causal (text tower): K4 on
-    head-split q, k, v."""
-    B, T, W = xn.shape
-    qkv = linear_bias(xn, blk.qkv.w, blk.qkv.b)
-    if not causal:
-        return mha_qkv(qkv, n_heads)
-    q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
-    return mha(q, k, v, causal=True).permute(0, 2, 1, 3).reshape(B, T, W)
+def _counted(x: torch.Tensor) -> None:
+    """Count one LayerNorm of x: the row pass on the card, plain on the CPU."""
+    count("clip.ln_rows" if x.is_cuda else "clip.ln_plain")
+
+
+def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A LayerNorm with nothing fused after it."""
+    _counted(x)
+    return ln_rows(x, g, b)
 
 
 def _mlp_block(x: torch.Tensor, blk: Block) -> torch.Tensor:
     """x + MLP(LN2(x)): fc1's output rounds to bf16 BEFORE QuickGELU
     (x * sigmoid(1.702 x)), fc2's before the residual add."""
-    h = linear_bias_gelu(layer_norm(x, blk.ln2_g, blk.ln2_b), blk.fc1.w, blk.fc1.b)
+    _counted(x)
+    h = ln_fc1(x, blk.fc1.w, blk.fc1.b, blk.ln2_g, blk.ln2_b)
     return linear_bias_then_resid(h, blk.fc2.w, blk.fc2.b, x)
 
 
 def _block(x: torch.Tensor, blk: Block, n_heads: int, causal: bool = False) -> torch.Tensor:
-    if not causal and _fused_ln_attn_mode() == "1":
+    """One block. Bidirectional: K2 (LN1, qkv, attention), or under
+    D2R_ATTN_FUSED_LN=0 LN1, the qkv GEMM and K3 apart; causal (text tower):
+    LN1 and qkv, then K4 on head-split q, k, v."""
+    if causal:
+        B, T, W = x.shape
+        _counted(x)
+        qkv = ln_qkv(x, blk.qkv.w, blk.qkv.b, blk.ln1_g, blk.ln1_b)
+        q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+        a = mha(q, k, v, causal=True).permute(0, 2, 1, 3).reshape(B, T, W)
+    elif _fused_ln_attn_mode() == "1":
+        _counted(x)  # K2's LN1
         a = mha_ln_qkv(x.to(BF16), blk.qkv.w, blk.qkv.b, blk.ln1_g, blk.ln1_b, n_heads)
     else:
-        a = _attn(layer_norm(x, blk.ln1_g, blk.ln1_b), blk, n_heads, causal)
+        a = mha_qkv(linear_bias(_ln(x, blk.ln1_g, blk.ln1_b), blk.qkv.w, blk.qkv.b), n_heads)
     return _mlp_block(linear_bias_then_resid(a, blk.proj.w, blk.proj.b, x), blk)
 
 
@@ -187,7 +205,8 @@ def _attn_cls(x: torch.Tensor, blk: Block, n_heads: int) -> torch.Tensor:
     values."""
     B, T, W = x.shape
     hd = W // n_heads
-    qkv = linear_bias(layer_norm(x, blk.ln1_g, blk.ln1_b), blk.qkv.w, blk.qkv.b)
+    _counted(x)
+    qkv = ln_qkv(x, blk.qkv.w, blk.qkv.b, blk.ln1_g, blk.ln1_b)
     q, k, v = qkv.split(W, dim=-1)
     q, k, v = _heads(q[:, :1], n_heads), _heads(k, n_heads), _heads(v, n_heads)
     logits = dot_exact(q, k.transpose(-1, -2))
@@ -210,7 +229,7 @@ def encode_image(model: CLIPModel, pixels: torch.Tensor) -> torch.Tensor:
     x = dot_bf16(x, model.v_patch_w.reshape(ps * ps * 3, W))
     cls = model.v_class_emb.expand(B, 1, W)
     x = torch.cat([cls, x], dim=1) + model.v_pos_emb
-    x = layer_norm(x, model.v_ln_pre_g, model.v_ln_pre_b)
+    x = _ln(x, model.v_ln_pre_g, model.v_ln_pre_b)
     for i in range(cfg.vision_layers - 1):
         x = _block(x, model.v_blk[i], cfg.vision_heads)
     # Final block: only the CLS row feeds ln_post, so its attention query,
@@ -219,7 +238,7 @@ def encode_image(model: CLIPModel, pixels: torch.Tensor) -> torch.Tensor:
     x_cls = linear_bias_then_resid(_attn_cls(x, blk, cfg.vision_heads), blk.proj.w, blk.proj.b,
                                    x[:, :1].contiguous())
     x_cls = _mlp_block(x_cls, blk)
-    x = layer_norm(x_cls[:, 0], model.v_ln_post_g, model.v_ln_post_b)
+    x = _ln(x_cls[:, 0], model.v_ln_post_g, model.v_ln_post_b)
     return x.to(F32) @ model.v_proj
 
 
@@ -232,7 +251,7 @@ def encode_text(model: CLIPModel, ids: torch.Tensor) -> torch.Tensor:
     x = model.t_tok_emb[ids] + model.t_pos_emb[:T]
     for i in range(cfg.text_layers):
         x = _block(x, model.t_blk[i], cfg.text_heads, causal=True)
-    x = layer_norm(x, model.t_ln_final_g, model.t_ln_final_b)
+    x = _ln(x, model.t_ln_final_g, model.t_ln_final_b)
     eot = torch.argmax((ids == cfg.eot_id).to(torch.int32), dim=-1)
     x = x[torch.arange(B, device=ids.device), eot]
     return x.to(F32) @ model.t_proj

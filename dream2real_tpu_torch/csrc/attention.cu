@@ -93,9 +93,15 @@
 // bias, bf16, QuickGELU; bias, bf16, residual), and stores 16 bytes a thread
 // through a per-warp staging tile. cuBLAS cannot take an f32 bias into its
 // accumulator (addmm rounds the bias to bf16 first), which is why the tower
-// runs on this GEMM. K2's LN1 is a pass of its own (ln_rows: xn =
-// bf16(LN(x)), the reference's rounding place) and the GEMM reads xn like
-// any A.
+// runs on this GEMM.
+//
+// ln_rows (every LayerNorm of both towers): xn = bf16(LN(x)), one warp a
+// row, written once where the reference rounds. Before a GEMM (K2's LN1,
+// LN1 of the last vision block and of the text tower, LN2 before fc1) it is
+// the GEMM's prologue, a launch of its own that the GEMM then reads like any
+// A (d2r_ln_gemm); ln_pre, ln_post and ln_final run it alone (d2r_ln_rows).
+// One pass reads the bf16 rows and writes them back: 75.6 MB at the scoring
+// shape (32 x 577 rows of 1024), 0.0226 ms at 3.35 TB/s.
 //
 // attn_exact (K4: 3 captions x 12 heads x 77 tokens, bound by launch
 // latency: 0.4 us of bytes). One launch, 64 query rows of one head a block,
@@ -202,7 +208,7 @@ __device__ __forceinline__ float ex2_biased(float x_plus_24) {
   return y * 5.9604644775390625e-08f;
 }
 
-// ------------------------------------------------------ LN1 (K2's prologue)
+// ---------------------------------------------------- LayerNorm row pass
 
 // One warp per row: xn = bf16(((x - mu) * rstd) * g + beta) with mu and
 // rstd = rsqrt(var + eps) in f32, two-pass like the reference
@@ -970,6 +976,36 @@ int launch_gemm(const void* a, const void* w, const void* bias, const void* resi
   return int(cudaGetLastError());
 }
 
+// out (M x N) = epilogue `epi` (GemmEpi) of a @ W + bias; resid for the
+// residual epilogues, null otherwise.
+int launch_gemm_epi(const void* a, const void* w, const void* bias, const void* resid, int M,
+                    int K, int N, int epi, void* out, cudaStream_t cs) {
+  const bool wants_resid = epi == kEpiBiasResid || epi == kEpiBiasThenResid;
+  if (bias == nullptr || wants_resid != (resid != nullptr)) return int(cudaErrorInvalidValue);
+  switch (epi) {
+    case kEpiBias: return launch_gemm<kEpiBias>(a, w, bias, resid, M, K, N, out, cs);
+    case kEpiBiasResid: return launch_gemm<kEpiBiasResid>(a, w, bias, resid, M, K, N, out, cs);
+    case kEpiBiasGelu: return launch_gemm<kEpiBiasGelu>(a, w, bias, resid, M, K, N, out, cs);
+    case kEpiBiasThenResid:
+      return launch_gemm<kEpiBiasThenResid>(a, w, bias, resid, M, K, N, out, cs);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// xn (M x K) = bf16(LN(x)): eight rows (warps) a block. The rows are read
+// 16 bytes at a time and g, beta 32, so K % 8 == 0 and every pointer
+// 16-byte aligned.
+int launch_ln_rows(const void* x, const void* g, const void* beta, int M, int K, float eps,
+                   void* xn, cudaStream_t cs) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
+                        reinterpret_cast<uintptr_t>(beta) | reinterpret_cast<uintptr_t>(xn);
+  if (K <= 0 || K % 8 || (any & 15)) return int(cudaErrorInvalidValue);
+  ln_rows<<<(M + 7) / 8, 256, 0, cs>>>(static_cast<const bf16*>(x), static_cast<const float*>(g),
+                                       static_cast<const float*>(beta), M, K, eps,
+                                       static_cast<bf16*>(xn));
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Attention over heads of 64 addressed by element strides. mode 0 clamp,
@@ -1015,20 +1051,27 @@ extern "C" int d2r_attention(const void* q, const void* k, const void* v, void* 
   }
 }
 
-// qkv (M x N) = bf16(bf16(LN(x)) @ W + bias) for x (M x K); xn is (M x K)
-// bf16 scratch the caller allocates (the normalised rows).
-extern "C" int d2r_ln_qkv(const void* x, const void* g, const void* beta, const void* w,
-                          const void* bias, int M, int K, int N, float eps, void* xn, void* qkv,
-                          void* stream) {
+// xn (M x K) = bf16(LN(x)) for x (M x K) bf16, g and beta (K,) f32.
+// K % 8 == 0.
+extern "C" int d2r_ln_rows(const void* x, const void* g, const void* beta, int M, int K,
+                           float eps, void* xn, void* stream) {
+  if (M <= 0) return 0;
+  return launch_ln_rows(x, g, beta, M, K, eps, xn, static_cast<cudaStream_t>(stream));
+}
+
+// out (M x N) = epilogue `epi` (GemmEpi) of bf16(LN(x)) @ W + bias for x
+// (M x K), as d2r_gemm takes them: the row pass writes the normalised rows
+// to xn, (M x K) bf16 scratch the caller allocates, and the GEMM reads them
+// like any A. K % 64 == 0 and N % 128 == 0.
+extern "C" int d2r_ln_gemm(const void* x, const void* g, const void* beta, const void* w,
+                           const void* bias, const void* resid, int M, int K, int N, float eps,
+                           int epi, void* xn, void* out, void* stream) {
   if (M <= 0) return 0;
   if (K % kGK || N % kGN) return int(cudaErrorInvalidValue);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  ln_rows<<<(M + 7) / 8, 256, 0, cs>>>(static_cast<const bf16*>(x), static_cast<const float*>(g),
-                                       static_cast<const float*>(beta), M, K, eps,
-                                       static_cast<bf16*>(xn));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  return launch_gemm<kEpiBias>(xn, w, bias, nullptr, M, K, N, qkv, cs);
+  const int err = launch_ln_rows(x, g, beta, M, K, eps, xn, cs);
+  if (err != int(cudaSuccess)) return err;
+  return launch_gemm_epi(xn, w, bias, resid, M, K, N, epi, out, cs);
 }
 
 // out (M x N) = epilogue `epi` (GemmEpi) of a @ W + bias for a (M x K) bf16,
@@ -1037,15 +1080,5 @@ extern "C" int d2r_ln_qkv(const void* x, const void* g, const void* beta, const 
 extern "C" int d2r_gemm(const void* a, const void* w, const void* bias, const void* resid, int M,
                         int K, int N, int epi, void* out, void* stream) {
   if (M <= 0) return 0;
-  const bool wants_resid = epi == kEpiBiasResid || epi == kEpiBiasThenResid;
-  if (bias == nullptr || wants_resid != (resid != nullptr)) return int(cudaErrorInvalidValue);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  switch (epi) {
-    case kEpiBias: return launch_gemm<kEpiBias>(a, w, bias, resid, M, K, N, out, cs);
-    case kEpiBiasResid: return launch_gemm<kEpiBiasResid>(a, w, bias, resid, M, K, N, out, cs);
-    case kEpiBiasGelu: return launch_gemm<kEpiBiasGelu>(a, w, bias, resid, M, K, N, out, cs);
-    case kEpiBiasThenResid:
-      return launch_gemm<kEpiBiasThenResid>(a, w, bias, resid, M, K, N, out, cs);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return launch_gemm_epi(a, w, bias, resid, M, K, N, epi, out, static_cast<cudaStream_t>(stream));
 }

@@ -7,6 +7,10 @@ Each wrapper takes its plain PyTorch version for CPU tensors and launches
 - ``mha_ln_qkv`` (K2): LN1 + qkv projection + bidirectional attention. On
   the card: ``ln_qkv`` (an LN pass that writes bf16(LN(x)), then the TMA +
   wgmma GEMM with the bias epilogue), then the K3 attention kernel.
+- ``ln_rows``, ``ln_qkv``, ``ln_fc1`` (L1): every LayerNorm of both CLIP
+  towers on the card, the row pass ``ln_rows`` alone (ln_pre, ln_post,
+  ln_final) or as the prologue of the qkv GEMM (bias epilogue) or of fc1
+  (bias + QuickGELU); ``layer_norm`` is their plain version.
 - ``mha_qkv`` (K3): attention on a projection-layout qkv (B, T, 3W).
 - ``mha(causal=True)`` (K4): causal head-split attention, text tower.
 - ``mha(causal=False)`` (K9): bidirectional head-split attention with exact
@@ -104,7 +108,8 @@ def launch_geometry(T: int, mode: int) -> dict:
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _ARGTYPES = {
     "d2r_attention": [_P] * 4 + [_I] * 3 + [_L] * 6 + [ctypes.c_float] + [_I] * 5 + [_P],
-    "d2r_ln_qkv": [_P] * 5 + [_I] * 3 + [ctypes.c_float] + [_P] * 3,
+    "d2r_ln_rows": [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_P] * 2,
+    "d2r_ln_gemm": [_P] * 6 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 3,
     "d2r_gemm": [_P] * 4 + [_I] * 4 + [_P] * 2,
 }
 _FNS: dict = {}
@@ -193,6 +198,35 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1
     return ((x32 - mu) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
 
 
+def _ln_params(who: str, g: torch.Tensor, b: torch.Tensor, K: int, dev) -> None:
+    _check(f"{who}: ln_g", g, F32, (K,), dev)
+    _check(f"{who}: ln_b", b, F32, (K,), dev)
+
+
+def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A LayerNorm as one pass over the rows: x (..., K) bf16, g and b (K,)
+    f32 -> bf16(LN(x)), the statistics in f32 and two-pass, each product
+    rounded on its own as ``layer_norm`` rounds it (the row sums run in
+    another order than torch's, so an output may lie one bf16 step from
+    it). K % 8 == 0."""
+    if not x.is_cuda:
+        return layer_norm(x, g, b)
+    K, dev = x.shape[-1], x.device
+    if K % 8:
+        raise ValueError(f"ln_rows: unsupported width {K}")
+    _check("ln_rows: x", x, BF16, tuple(x.shape), dev)
+    _ln_params("ln_rows", g, b, K, dev)
+    out = torch.empty_like(x)
+    err = _fn("d2r_ln_rows")(build.ptr(x), build.ptr(g), build.ptr(b), x.numel() // K, K, 1e-5,
+                             build.ptr(out), build.stream_ptr(dev))
+    build.check(err, "ln_rows")
+    ln_rows.launches += 1
+    return out
+
+
+ln_rows.launches = 0
+
+
 def mha_ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b, n_heads: int, maxsub: bool) -> torch.Tensor:
     """Plain version of K2: LN1 (f32) -> bf16, xn @ Wqkv + b -> bf16, then
     K3's attention."""
@@ -208,33 +242,38 @@ def ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b) -> torch.Tensor:
 
 
 def ln_qkv(x, wqkv, bqkv, ln_g, ln_b) -> torch.Tensor:
-    """K2's first half: x (B, T, W) bf16 -> qkv (B, T, N) bf16 =
-    bf16(bf16(LN1(x)) @ wqkv + bqkv). On the card an LN pass writes the
-    normalised rows in bf16 (the reference's rounding place), then the TMA +
-    wgmma GEMM multiplies them. W % 64 == 0 and N % 128 == 0."""
+    """LN1 and the qkv projection (K2's first half; the split paths' qkv):
+    x (..., W) bf16 -> qkv (..., N) bf16 = bf16(bf16(LN1(x)) @ wqkv + bqkv).
+    On the card the row pass, then the GEMM with the bias epilogue. W % 64 ==
+    0 and N % 128 == 0."""
     if not x.is_cuda:
         return ln_qkv_plain(x, wqkv, bqkv, ln_g, ln_b)
-    B, T, W = x.shape
-    dev = x.device
-    N = wqkv.shape[1]
-    if W % 64 or N % 128:
-        raise ValueError(f"ln_qkv: unsupported widths {W} -> {N}")
-    _check("ln_qkv: x", x, BF16, (B, T, W), dev)
-    _check("ln_qkv: wqkv", wqkv, BF16, (W, N), dev)
-    _check("ln_qkv: bqkv", bqkv, F32, (N,), dev)
-    _check("ln_qkv: ln_g", ln_g, F32, (W,), dev)
-    _check("ln_qkv: ln_b", ln_b, F32, (W,), dev)
-    qkv = torch.empty(B, T, N, dtype=BF16, device=dev)
-    xn = torch.empty(B, T, W, dtype=BF16, device=dev)
-    err = _fn("d2r_ln_qkv")(
-        build.ptr(x), build.ptr(ln_g), build.ptr(ln_b), build.ptr(wqkv), build.ptr(bqkv),
-        B * T, W, N, 1e-5, build.ptr(xn), build.ptr(qkv), build.stream_ptr(dev))
-    build.check(err, "ln_qkv")
+    out = _gemm(x, wqkv, bqkv, None, "bias", "ln_qkv", ln=(ln_g, ln_b))
     ln_qkv.launches += 1
-    return qkv
+    return out
 
 
 ln_qkv.launches = 0
+
+
+def ln_fc1_plain(x, w, b, ln_g, ln_b) -> torch.Tensor:
+    """Plain version of ``ln_fc1``: fc1 and QuickGELU of bf16(LN2(x)), as
+    ``linear_bias_gelu_plain`` rounds them."""
+    return linear_bias_gelu_plain(layer_norm(x.to(BF16), ln_g.to(F32), ln_b.to(F32)), w, b)
+
+
+def ln_fc1(x, w, b, ln_g, ln_b) -> torch.Tensor:
+    """LN2, fc1 and QuickGELU of the towers' MLP: x (..., W) bf16, w (W, F)
+    bf16, b (F,) f32 -> (..., F) bf16. On the card the row pass, then the
+    GEMM with the bias + QuickGELU epilogue. W % 64 == 0 and F % 128 == 0."""
+    if not x.is_cuda:
+        return ln_fc1_plain(x, w, b, ln_g, ln_b)
+    out = _gemm(x, w, b, None, "bias_gelu", "ln_fc1", ln=(ln_g, ln_b))
+    ln_fc1.launches += 1
+    return out
+
+
+ln_fc1.launches = 0
 
 
 def mha_ln_qkv(x, wqkv, bqkv, ln_g, ln_b, n_heads: int,
@@ -327,10 +366,12 @@ EPILOGUES = {"bias": 0, "bias_resid": 1, "bias_gelu": 2, "bias_then_resid": 3}
 
 
 def _gemm(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, resid, epilogue: str,
-          who: str) -> torch.Tensor:
+          who: str, ln=None) -> torch.Tensor:
     """a (..., K) bf16 @ w (K, N) bf16 + b (N,) f32 through ``epilogue`` on
     the card -> (..., N) bf16; resid (..., N) bf16 for the residual
-    epilogues. K % 64 == 0 and N % 128 == 0."""
+    epilogues. With ``ln``, a LayerNorm's gain and bias ((K,) f32), the row
+    pass first writes bf16(LN(a)) once and the GEMM reads it in a's place.
+    K % 64 == 0 and N % 128 == 0."""
     K, N = a.shape[-1], w.shape[-1]
     dev = a.device
     if K % 64 or N % 128:
@@ -339,12 +380,22 @@ def _gemm(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, resid, epilogue: st
     _check(f"{who}: a", a, BF16, (*lead, K), dev)
     _check(f"{who}: w", w, BF16, (K, N), dev)
     _check(f"{who}: b", b, F32, (N,), dev)
+    if (resid is not None) != epilogue.endswith("resid"):
+        raise ValueError(f"{who}: the {epilogue} epilogue and the residual given disagree")
     if resid is not None:
         _check(f"{who}: resid", resid, BF16, (*lead, N), dev)
     out = torch.empty(*lead, N, dtype=BF16, device=dev)
-    err = _fn("d2r_gemm")(
-        build.ptr(a), build.ptr(w), build.ptr(b), None if resid is None else build.ptr(resid),
-        a.numel() // K, K, N, EPILOGUES[epilogue], build.ptr(out), build.stream_ptr(dev))
+    args = (build.ptr(w), build.ptr(b), None if resid is None else build.ptr(resid),
+            a.numel() // K, K, N)
+    if ln is None:
+        err = _fn("d2r_gemm")(build.ptr(a), *args, EPILOGUES[epilogue], build.ptr(out),
+                              build.stream_ptr(dev))
+    else:
+        _ln_params(who, *ln, K, dev)
+        xn = torch.empty_like(a)
+        err = _fn("d2r_ln_gemm")(build.ptr(a), build.ptr(ln[0]), build.ptr(ln[1]), *args, 1e-5,
+                                 EPILOGUES[epilogue], build.ptr(xn), build.ptr(out),
+                                 build.stream_ptr(dev))
     build.check(err, f"gemm ({epilogue})")
     return out
 

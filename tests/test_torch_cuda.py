@@ -8,6 +8,7 @@ without a GPU every test skips. Needs no JAX, so on a machine without it:
 import numpy as np
 import pytest
 import torch
+from clip_witness import port_block, witness_block, witness_input
 
 from dream2real_tpu_torch.nerf import march_kernel as mk
 from dream2real_tpu_torch.nerf.model import NGPConfig, init_ngp_params
@@ -15,63 +16,6 @@ from dream2real_tpu_torch.nerf.render import RenderSettings, ray_aabb
 from dream2real_tpu_torch.ops import attention as att
 
 pytestmark = pytest.mark.cuda
-
-# The double-rounding witness: a row [1, 1] against a weight column
-# [1, 2^-8 - 2^-16] (both exact in bf16) gives acc = 1 + 2^-8 - 2^-16, and a
-# bias of 2^-9 puts acc + b past the midpoint 1 + 2^-8: one rounding,
-# bf16(acc + b), is 1 + 2^-7; two, bf16(bf16(acc) + b), give 1.
-WITNESS_C, WITNESS_B = 2.0**-8 - 2.0**-16, 2.0**-9
-
-
-def witness_block(W: int = 128) -> dict:
-    """A tower block (the reference's parameter tree, f32 numpy) whose biased
-    layers each meet the witness: LN1 and LN2 have gain 0 and bias [1, 1, 0,
-    ...], so their outputs are exactly that row; q = k = 0, so attention
-    averages v, which every token shares; v's column 0 is the qkv witness
-    (v1 = v2 = 1), the out-projection's column 3 the proj witness over
-    [v1, v2] and its column 5 copies v0, fc1's column 0 the fc1 witness and
-    fc2's column 4 copies QuickGELU of it. With x = 0.25 at column 3 and 0
-    elsewhere, one rounding everywhere gives columns 3, 4, 5 = 1.2578125,
-    gelu(1 + 2^-7), 1 + 2^-7; a second rounding gives 1.25, gelu(1), 1."""
-    def z(*shape):
-        return np.zeros(shape, np.float32)
-
-    row = z(W)
-    row[:2] = 1.0
-    p = {"ln1_g": z(W), "ln1_b": row.copy(), "ln2_g": z(W), "ln2_b": row.copy(),
-         "qkv": {"w": z(W, 3 * W), "b": z(3 * W)}, "proj": {"w": z(W, W), "b": z(W)},
-         "fc1": {"w": z(W, 4 * W), "b": z(4 * W)}, "fc2": {"w": z(4 * W, W), "b": z(W)}}
-    v = 2 * W
-    p["qkv"]["w"][:2, v] = 1.0, WITNESS_C
-    p["qkv"]["b"][v] = WITNESS_B
-    p["qkv"]["w"][0, v + 1] = p["qkv"]["w"][0, v + 2] = 1.0
-    p["proj"]["w"][1:3, 3] = 1.0, WITNESS_C
-    p["proj"]["b"][3] = WITNESS_B
-    p["proj"]["w"][0, 5] = 1.0
-    p["fc1"]["w"][:2, 0] = 1.0, WITNESS_C
-    p["fc1"]["b"][0] = WITNESS_B
-    p["fc2"]["w"][0, 4] = 1.0
-    return p
-
-
-def witness_input(W: int = 128, T: int = 16) -> np.ndarray:
-    x = np.zeros((1, T, W), np.float32)
-    x[..., 3] = 0.25
-    return x
-
-
-def port_block(p: dict, device):
-    """The port's Block holding the parameter tree p."""
-    from dream2real_tpu_torch.clip import model as cm
-
-    blk = cm.Block(p["ln1_g"].shape[0], device)
-    with torch.no_grad():
-        for name, t in blk.named_parameters():
-            node = p
-            for part in name.split("."):
-                node = node[part]
-            t.copy_(torch.as_tensor(node))
-    return blk
 
 
 @pytest.fixture
@@ -240,6 +184,27 @@ def test_wrappers_reject_bad_inputs(dev):
         att.linear_bias_gelu(x, w, b3.to(bf))  # the bias in bf16
     with pytest.raises(ValueError):
         att.linear_bias_then_resid(x, w, b3, x)  # the residual is not (B, T, N)
+    # The LayerNorm row pass, alone and as a GEMM's prologue.
+    with pytest.raises(ValueError):
+        att.ln_rows(x.float(), g, g)  # f32 rows
+    with pytest.raises(ValueError):
+        att.ln_rows(x.transpose(0, 1), g, g)  # not contiguous
+    with pytest.raises(ValueError):
+        att.ln_rows(x[..., :100].contiguous(), g[:100], g[:100])  # K % 8
+    with pytest.raises(ValueError):
+        att.ln_rows(x, g.to(bf), g)  # ln_g in bf16
+    w4 = torch.zeros(128, 512, dtype=bf, device=dev)
+    b4 = torch.zeros(512, device=dev)
+    with pytest.raises(ValueError):
+        att.ln_fc1(x.float(), w4, b4, g, g)  # f32 rows
+    with pytest.raises(ValueError):
+        att.ln_fc1(x.transpose(0, 1), w4, b4, g, g)  # not contiguous
+    with pytest.raises(ValueError):
+        att.ln_fc1(x[..., :96].contiguous(), w4[:96].contiguous(), b4, g[:96], g[:96])  # K % 64
+    with pytest.raises(ValueError):
+        att.ln_fc1(x, w4[:, :320].contiguous(), b4[:320], g, g)  # N % 128
+    with pytest.raises(ValueError):
+        att._gemm(x, w, b3, None, "bias_then_resid", "ln_gemm", ln=(g, g))  # no residual
 
 
 def test_split_and_fused_attention_paths_agree(dev, monkeypatch):
@@ -764,6 +729,69 @@ def test_epilogue_gemms_match_plain(dev, K, N, M):
         assert float(after_excess(got, layer, after, slack).max()) <= 0.0, name
 
 
+def _ln_excess(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """How far the row pass's output lies beyond one bf16 step of the plain
+    LayerNorm's (2^-7 |plain|) plus 2^-16; <= 0 where held. Its row sums run
+    in another order than torch's, which moves a bf16 rounding now and then,
+    and an output that nearly cancels to zero by more than its own step."""
+    got, ref = got.float(), ref.float()
+    return (got - ref).abs() - 2**-7 * ref.abs() - 2.0**-16
+
+
+@pytest.mark.parametrize("M", [1, 77, 129, 18464])
+@pytest.mark.parametrize("K", [64, 768, 1024, 4096])
+def test_ln_rows_match_layer_norm(dev, K, M):
+    """The row pass alone (ln_pre, ln_post, ln_final) against layer_norm
+    within one bf16 step, on rows with a mean far from zero too."""
+    gen = torch.Generator(device=dev).manual_seed(K + M)
+    x = (torch.randn(M, K, generator=gen, device=dev) * 2 + 3).to(torch.bfloat16)
+    g = 1 + 0.1 * torch.randn(K, generator=gen, device=dev)
+    b = 0.1 * torch.randn(K, generator=gen, device=dev)
+    n = att.ln_rows.launches
+    got = att.ln_rows(x, g, b)
+    assert att.ln_rows.launches == n + 1 and got.shape == x.shape
+    assert float(_ln_excess(got, att.layer_norm(x, g, b)).max()) <= 0.0
+
+
+@pytest.mark.parametrize("M", [1, 77, 129])
+@pytest.mark.parametrize("K,N", TOWER_SHAPES)
+def test_ln_gemm_matches_plain(dev, K, N, M):
+    """The row pass as a GEMM's prologue under the tower's three epilogues
+    (ln_qkv and ln_fc1 for bias and bias_gelu, the entry itself for
+    bias_then_resid): bit for bit the GEMM on the row pass's own rows, and
+    against linear_bias_*_plain(layer_norm(x)) by the tolerance model of
+    test_epilogue_gemms_match_plain, its slack widened by twice what the
+    rows' own differences from layer_norm's can move each sum (|xn - plain
+    xn| @ |w|; twice, as QuickGELU's slope reaches 1.1)."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + M + 1)
+    x = (torch.randn(3, M, K, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=gen, device=dev) * K**-0.5).to(torch.bfloat16)
+    b = torch.randn(N, generator=gen, device=dev) * 0.1
+    r = (torch.randn(3, M, N, generator=gen, device=dev)).to(torch.bfloat16)
+    g = 1 + 0.1 * torch.randn(K, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(K, generator=gen, device=dev)
+    xn, xn_plain = att.ln_rows(x, g, beta), att.layer_norm(x, g, beta)
+    assert float(_ln_excess(xn, xn_plain).max()) <= 0.0
+    layer = att.linear_bias_plain(xn_plain, w, b)
+    wa = w.float().abs()
+    slack = (2.0**-20 * (xn_plain.float().abs() @ wa)
+             + 2 * (xn.float() - xn_plain.float()).abs() @ wa)
+    for name, got, gemm, after in (
+        ("ln_qkv", lambda: att.ln_qkv(x, w, b, g, beta), lambda: att.linear_bias(xn, w, b),
+         lambda c: c),
+        ("ln_fc1", lambda: att.ln_fc1(x, w, b, g, beta), lambda: att.linear_bias_gelu(xn, w, b),
+         lambda c: c * torch.sigmoid(1.702 * c.float()).to(torch.bfloat16)),
+        (None, lambda: att._gemm(x, w, b, r, "bias_then_resid", "ln_gemm", ln=(g, beta)),
+         lambda: att.linear_bias_then_resid(xn, w, b, r), lambda c: r + c),
+    ):
+        n = getattr(att, name).launches if name else 0
+        out = got()
+        if name:
+            assert getattr(att, name).launches == n + 1
+        assert out.shape == (3, M, N) and torch.equal(out, gemm()), name
+        assert float(after_excess(out, layer, after, slack).max()) <= 0.0, name
+
+
 @pytest.mark.parametrize("causal,fused", [(False, "0"), (False, "1"), (True, "0")])
 def test_tower_block_rounds_once_as_the_reference(dev, causal, fused, monkeypatch):
     """The double-rounding witness (witness_block) through a tower block on
@@ -783,6 +811,53 @@ def test_tower_block_rounds_once_as_the_reference(dev, causal, fused, monkeypatc
                         2, causal=causal).cpu()
     assert float(want[0, 0, 3]) == 1.2578125 and float(want[0, 0, 5]) == 1 + 2**-7
     assert torch.equal(got, want), (got[0, 0, :6], want[0, 0, :6])
+
+
+def test_last_block_rounds_once_as_the_reference(dev):
+    """The double-rounding witness through the last vision block's path in
+    encode_image (the class token's attention, out-projection and MLP, its
+    LN1 and LN2 on the row pass) on the card: bit for bit the CPU's plain
+    path, one rounding at each biased layer."""
+    from dream2real_tpu_torch.clip import model as cm
+
+    p, x = witness_block(), witness_input()
+
+    def last_block(device):
+        blk = port_block(p, device)
+        x_ = torch.as_tensor(x, device=device).to(torch.bfloat16)
+        cls = att.linear_bias_then_resid(cm._attn_cls(x_, blk, 2), blk.proj.w, blk.proj.b,
+                                         x_[:, :1].contiguous())
+        return cm._mlp_block(cls, blk).cpu()
+
+    with torch.inference_mode():
+        want, got = last_block("cpu"), last_block(dev)
+    assert float(want[0, 0, 3]) == 1.2578125 and float(want[0, 0, 5]) == 1 + 2**-7
+    assert torch.equal(got, want), (got[0, 0, :6], want[0, 0, :6])
+
+
+def test_a_traced_image_tower_runs_every_layer_norm_on_the_row_pass(dev):
+    """encode_image of 2 images at ViT-L/14@336 under a profiler counts 50
+    LayerNorms on the row pass (ln_pre; LN1, through K2, and LN2 of blocks
+    0-22; the last block's LN1 and LN2; ln_post) and none plain, and
+    launches the wrappers that many times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dream2real_tpu_torch.clip import model as cm
+    from dream2real_tpu_torch.utils import profiling
+
+    cfg = cm.CLIPConfig()
+    clip = cm.init_clip_params(cfg, torch.Generator(device=dev).manual_seed(4), device=dev)
+    px = torch.randn(2, 336, 336, 3, generator=torch.Generator(device=dev).manual_seed(5),
+                     device=dev)
+    wrappers = (att.ln_rows, att.ln_qkv, att.ln_fc1, att.linear_bias, att.linear_bias_gelu)
+    before = [fn.launches for fn in wrappers]
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]):
+        profiling.reset()
+        emb = cm.encode_image(clip, px)
+        counted = profiling.counters()
+    assert emb.shape == (2, cfg.projection_dim) and bool(torch.isfinite(emb).all())
+    assert counted.get("clip.ln_rows") == 50 and "clip.ln_plain" not in counted
+    assert [fn.launches - n for fn, n in zip(wrappers, before)] == [2, 24, 24, 0, 0]
 
 
 @pytest.mark.parametrize("T", [1, 16, 77, 128, 129, 300])

@@ -9,7 +9,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
-from test_torch_cuda import port_block, witness_block, witness_input
+from clip_witness import port_block, witness_block, witness_input
 
 from dream2real_tpu.clip import model as jclip
 from dream2real_tpu_torch.clip import model as tclip
@@ -103,7 +103,7 @@ def test_proj_residual_matches_reference_block(W, capsys):
 
 @pytest.mark.parametrize("causal,fused", [(False, "0"), (False, "1"), (True, "0")])
 def test_double_rounding_witness_matches_reference(causal, fused, monkeypatch):
-    """The witness block (test_torch_cuda.witness_block) through the port's
+    """The witness block (clip_witness.witness_block) through the port's
     _block on the CPU and the reference's _block: bit for bit, and one
     rounding at each layer (qkv's v, proj, fc1)."""
     monkeypatch.setenv("D2R_ATTN_FUSED_LN", fused)

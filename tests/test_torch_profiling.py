@@ -223,7 +223,11 @@ def test_fused_score_records_a_block(n_poses, batch, slab, monkeypatch):
         assert {x["parent"] for x in s[name]} == slab_ids
     for render, tower in zip(s["score.render"], s["score.tower"]):
         assert render["end_ns"] <= tower["start_ns"]
-    assert profiling.counters() == {"score.poses": n_poses, "score.groups": groups}
+    # Every LayerNorm of the towers runs plain on the CPU: a clip group's
+    # ln_pre, its one block's LN1 and LN2 and ln_post; the captions' text
+    # block's LN1 and LN2 and ln_final.
+    assert profiling.counters() == {"score.poses": n_poses, "score.groups": groups,
+                                    "clip.ln_plain": 4 * groups + 3}
 
 
 # ------------------------------------------------------------------ training
