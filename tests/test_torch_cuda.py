@@ -1,6 +1,7 @@
-"""The CUDA kernels against their plain versions on the card, at small
-shapes (chip_smoke.py holds them at the main path's shapes). Marked `cuda`;
-without a GPU every test skips. Needs no JAX, so on a machine without it:
+"""The CUDA kernels against their plain versions on the card, at ragged
+shapes and at the main path's (chip_smoke.py's phase 2 times them there and
+holds none of them). Marked `cuda`; without a GPU every test skips. Needs no
+JAX, so on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -42,11 +43,13 @@ def _march_case(dev, n_rays, seed=0, miss=1 / 3):
     return packed, origins, d, ((0.3, -0.2, 0.0), (0.7, 0.2, 0.3)), st
 
 
-@pytest.mark.parametrize("n_rays", [1, 31, 32, 33, 300, 1000])
+@pytest.mark.parametrize("n_rays", [1, 31, 32, 33, 300, 1000, 16 * 128 * 128])
 def test_march_kernel_matches_plain(dev, n_rays):
-    """K1 at ragged live-ray counts around its 32-ray tiles, against its plain
-    version on the same compacted rays (5e-3, the reference's march
-    tolerance); early exit on and off bit for bit; misses exact zeros."""
+    """K1 at ragged live-ray counts around its 32-ray tiles, and at a clip
+    group's rays (32 poses of 128^2 crop rays as two poses of 16 x 128^2),
+    against its plain version on the same compacted rays (5e-3, the
+    reference's march tolerance); early exit on and off bit for bit; misses
+    exact zeros."""
     packed, origins, d, (lo, hi), st = _march_case(dev, n_rays, seed=n_rays)
     t0, t1 = mk.march_ranges(origins, d, (lo, hi), st)
     live, count = mk.compact_live(t0, t1)
@@ -126,11 +129,17 @@ def test_crop_render_waits_on_the_host_nowhere(dev):
     assert torch.equal(got, want) and got.shape == (8, res, res, 3)
 
 
+@pytest.mark.parametrize("B, T", [(2, 77), (32, 577)])
 @pytest.mark.parametrize("maxsub", ["0", "1"])
-def test_attention_kernels_match_plain(dev, maxsub, monkeypatch):
+def test_attention_kernels_match_plain(dev, maxsub, B, T, monkeypatch):
+    """K2 (LayerNorm, qkv GEMM and attention) and K3 (attention on the
+    projection layout) at a ragged shape and at a clip group's (B 32, T
+    577, W 1024), and K4 at the text tower's (3 captions, 12 heads, 77
+    tokens), in both softmax modes, at atol 0.02 / rtol 0.05 (the
+    reference's attention tolerance)."""
     monkeypatch.setenv("D2R_ATTN_MAXSUB", maxsub)
     gen = torch.Generator(device=dev).manual_seed(1)
-    B, T, W, H = 2, 77, 1024, 16
+    W, H = 1024, 16
     x = (torch.randn(B, T, W, generator=gen, device=dev) * 2).to(torch.bfloat16)
     w = (torch.randn(W, 3 * W, generator=gen, device=dev) * W**-0.5).to(torch.bfloat16)
     bq = torch.randn(3 * W, generator=gen, device=dev) * 0.02
@@ -139,6 +148,15 @@ def test_attention_kernels_match_plain(dev, maxsub, monkeypatch):
     out = att.mha_ln_qkv(x, w, bq, g, b, H).float()
     ref = att.mha_ln_qkv_plain(x, w, bq, g, b, H, maxsub == "1").float()
     torch.testing.assert_close(out, ref, atol=0.02, rtol=0.05)
+    g, b = 1 + 0.1 * torch.randn(W, generator=gen, device=dev), 0.1 * torch.randn(
+        W, generator=gen, device=dev)
+    torch.testing.assert_close(att.mha_ln_qkv(x, w, bq, g, b, H).float(),
+                               att.mha_ln_qkv_plain(x, w, bq, g, b, H, maxsub == "1").float(),
+                               atol=0.02, rtol=0.05)
+    qkv = (torch.randn(B, T, 3 * W, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    torch.testing.assert_close(att.mha_qkv(qkv, H).float(),
+                               att.mha_qkv_plain(qkv, H, maxsub == "1").float(),
+                               atol=0.02, rtol=0.05)
     q = [torch.randn(3, 12, 77, 64, generator=gen, device=dev).to(torch.bfloat16)
          for _ in range(3)]
     torch.testing.assert_close(att.mha(*q, causal=True).float(),
@@ -315,12 +333,12 @@ def _grads_close(g_k, g_p, what):
 
 
 @pytest.mark.parametrize("S", [1, 2, 33, 64, 65, 128])
-@pytest.mark.parametrize("R", [1, 63, 64, 65, 8191])
+@pytest.mark.parametrize("R", [1, 63, 64, 65, 8191, 8192])
 def test_train_fwd_bwd_ragged(dev, R, S):
     """K6 and K7 against their plain versions where S does not fill the
-    128-row tile and R does not fill the last tile or chunk; K7's parameter
-    gradients bit-identical from call to call and with and without ray
-    gradients."""
+    128-row tile and R does not fill the last tile or chunk, and at a
+    training batch's 8192 rays; K7's parameter gradients bit-identical from
+    call to call and with and without ray gradients."""
     from dream2real_tpu_torch.nerf import train_kernel as tk
 
     _, o, d, ts, box, w, b, rng = _train_inputs(dev, R, S, seed=R + S)
@@ -438,7 +456,9 @@ def test_density_weights_matches_plain_and_k6(dev, R, S, min_t):
 @pytest.mark.parametrize("S", [2, 17, 32, 48, 64])
 @pytest.mark.parametrize("R", [1, 300, 8192])
 def test_density_sample_matches_plain(dev, R, S, mix, min_t):
-    """K5 against its plain version (1e-2, chip_smoke.py's bound) on every
+    """K5 against its plain version within 1e-2 of t (K8's 5e-3 on the
+    coarse weights, carried through their CDF into a draw's position; the
+    CPU tests hold the plain version to the Pallas kernel at 2e-3) on every
     ray whose coarse weights K8 and the plain version cut alike (the others,
     shown ties of the transmittance cut, under 2% of the rays), its draws
     sorted and inside the coarse range on every ray, with rays that miss the
@@ -509,15 +529,15 @@ def _close(got, ref, what):
     torch.testing.assert_close(got.float(), ref.float(), atol=0.02, rtol=0.05, msg=what)
 
 
-@pytest.mark.parametrize("T", [77, 128])
-def test_bidirectional_and_bench_attention_match_plain(dev, T):
+@pytest.mark.parametrize("B, H, T", [(2, 3, 77), (2, 3, 128), (32, 16, 577)])
+def test_bidirectional_and_bench_attention_match_plain(dev, B, H, T):
     """K9 and the attention bench's X1 variants and probes against their
     plain versions; T = 77 pads to 80 (three unmasked zero keys), 128 pads
-    nothing."""
+    nothing, 577 (the scoring shape, B 32, H 16) pads to 584."""
     from dream2real_tpu_torch.experiments import bench_attention as ba
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = (torch.randn(2, 3, T, 64, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn(B, H, T, 64, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3))
     before = att.mha.launches
     _close(att.mha(q, k, v), att.mha_plain(q, k, v), "K9")
@@ -539,13 +559,15 @@ def test_bidirectional_and_bench_attention_match_plain(dev, T):
             _close(got, ref, name)
 
 
-def test_bench_projection_and_fused_blocks_match_plain(dev):
+@pytest.mark.parametrize("B, T", [(2, 77), (32, 577)])
+def test_bench_projection_and_fused_blocks_match_plain(dev, B, T):
     """X2 (v8-v11), X4 (v12) and X3 (v13, with the hand-written out-projection
-    GEMM) against their plain versions at ViT-L width, T = 77."""
+    GEMM) against their plain versions at ViT-L width, T = 77 and the
+    scoring shape (B 32, T 577)."""
     from dream2real_tpu_torch.experiments import bench_attention as ba
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    B, T, W, H = 2, 77, 1024, 16
+    W, H = 1024, 16
     qkv = (torch.randn(B, T, 3 * W, generator=gen, device=dev) * 2).to(torch.bfloat16)
     for kern, maxsub in ba.V8_KERNELS.items():
         n, n3 = ba.mha_v8_projlayout.launches[kern], att.mha_qkv.launches
@@ -566,7 +588,8 @@ def test_bench_projection_and_fused_blocks_match_plain(dev):
     assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())  # the bench's maxrel
     assert (ba.block_fused.launches, ba.block_fused_o.launches, att.proj_residual.launches) == (
         n12 + 1, n13 + 1, ng + 1)
-    # The GEMM alone on a ragged M (B * T = 154 rows, not a multiple of 128).
+    # The GEMM alone on a ragged M (B * T = 154 or 18,464 rows, not a
+    # multiple of 128).
     a = att.mha_ln_qkv(x, w, bq, g, b, H, maxsub=False)
     # Element by element within one bf16 step of the plain result; with a
     # zero residual the product is all of the result.
@@ -614,7 +637,7 @@ def test_attention_kernel_ragged_lengths(dev, T):
                 _close(got, ref, name)
 
 
-@pytest.mark.parametrize("T", [1, 65, 128, 577])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 577, 584])
 @pytest.mark.parametrize("mode", ["clamp", "maxsub", "nomax", "exact"])
 def test_keys_past_T_weigh_exactly_zero(dev, T, mode):
     """Rows past T in a longer buffer (keys of 100, values of 1e4) leave no
@@ -647,7 +670,9 @@ def test_gemm_ragged_rows(dev, M):
     (2^-7 |plain|) plus a slack: 5e-4 where the product is all of the result,
     2e-3 with a residual and behind the LN pass (whose row sums run in
     another order than torch's and move a bf16 rounding of an LN output now
-    and then; all but 1 in 100,000 elements stay within 5e-4)."""
+    and then; all but 1 in 100,000 elements stay within 5e-4). The tower's
+    three epilogues on the same rows (W x W), by the tolerance model of
+    test_epilogue_gemms_match_plain."""
     W = 1024
     gen = torch.Generator(device=dev).manual_seed(30 + M % 97)
     x = (torch.randn(1, M, W, generator=gen, device=dev) * 2).to(torch.bfloat16)
@@ -670,6 +695,16 @@ def test_gemm_ragged_rows(dev, M):
         over = excess(att.proj_residual(x, wo, bo, resid),
                       att.proj_residual_plain(x, wo, bo, resid))
         assert float(over.max()) <= atol
+    layer = att.linear_bias_plain(x, wo, bo)
+    slack = 2.0**-20 * (x.float().abs() @ wo.float().abs())
+    for name, args, after in (
+        ("linear_bias", (x, wo, bo), lambda c: c),
+        ("linear_bias_gelu", (x, wo, bo),
+         lambda c: c * torch.sigmoid(1.702 * c.float()).to(torch.bfloat16)),
+        ("linear_bias_then_resid", (x, wo, bo, x), lambda c: x + c),
+    ):
+        got = getattr(att, name)(*args)
+        assert float(after_excess(got, layer, after, slack).max()) <= 0.0, name
 
 
 def after_excess(got: torch.Tensor, h: torch.Tensor, after, slack: torch.Tensor) -> torch.Tensor:
@@ -694,11 +729,11 @@ TOWER_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024), (768, 23
                 (768, 768), (768, 3072), (3072, 768)]
 
 
-@pytest.mark.parametrize("M", [1, 77, 128, 129])
+@pytest.mark.parametrize("M", [1, 77, 128, 129, 18464])
 @pytest.mark.parametrize("K,N", TOWER_SHAPES)
 def test_epilogue_gemms_match_plain(dev, K, N, M):
-    """The tower's three GEMM epilogues at both towers' widths and ragged
-    rows, element by element within one bf16 step of the plain version
+    """The tower's three GEMM epilogues at both towers' widths, on 3 x M
+    rows (ragged, and three clip groups' 18,464 each), element by element within one bf16 step of the plain version
     (2^-7 |plain|) plus 2^-20 of the element's sum of |products|: the
     tensor cores and cuBLAS's f32 GEMM each round the f32 sum in their own
     order, about 2^-23 of that sum apart (measured on the H100), which moves
@@ -753,7 +788,7 @@ def test_ln_rows_match_layer_norm(dev, K, M):
     assert float(_ln_excess(got, att.layer_norm(x, g, b)).max()) <= 0.0
 
 
-@pytest.mark.parametrize("M", [1, 77, 129])
+@pytest.mark.parametrize("M", [1, 77, 129, 18464])
 @pytest.mark.parametrize("K,N", TOWER_SHAPES)
 def test_ln_gemm_matches_plain(dev, K, N, M):
     """The row pass as a GEMM's prologue under the tower's three epilogues

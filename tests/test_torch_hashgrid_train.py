@@ -10,7 +10,8 @@ indices worked out by hand; a traced run counting the points each step
 encodes.
 
 On the card (marked ``cuda``; they skip here): H1 against
-``hash_encode_plain`` at the published widths on 2^18 points (the features
+``hash_encode_plain`` at the published widths on 2^18 points and on the
+cell's 4096 rays of 64, 32 and 8 ray-ordered samples (the features
 within one bf16 step, plus 2^-20 of their sum of |corner terms| for the
 sums' other order; the table's gradient within 1e-5 of its largest entry
 with cosine >= 0.99999: the atomics' order varies), and the training step
@@ -147,7 +148,12 @@ def _card():
 
 
 @pytest.mark.cuda
-def test_kernel_against_its_twin_at_published_widths():
+@pytest.mark.parametrize("samples", [None, 64, 32, 8])
+def test_kernel_against_its_twin_at_published_widths(samples):
+    """On 2^18 points spread over the box (samples None), and ray-ordered as
+    the cell sends them: 4096 rays of 64, 32 or 8 sorted samples, each ray a
+    chord of the box (the loss's samples, the coarse pass, the free-space
+    samples), so that neighbouring points meet in a cell's atomics."""
     from dream2real_tpu_torch.nerf.hashgrid import (HashGridConfig, hash_encode,
                                                     hash_encode_plain, init_hash_table)
 
@@ -155,8 +161,13 @@ def test_kernel_against_its_twin_at_published_widths():
     cfg = HashGridConfig()
     g = torch.Generator(device=dev).manual_seed(1)
     table = (init_hash_table(cfg, g, dev) * 1e4).requires_grad_(True)  # features O(1)
-    pos = torch.rand(1 << 18, 3, generator=g, device=dev) * 1.1 - 0.05  # some clamped
-    cot = torch.randn(1 << 18, cfg.out_dim, generator=g, device=dev).to(torch.bfloat16)
+    if samples is None:
+        pos = torch.rand(1 << 18, 3, generator=g, device=dev) * 1.1 - 0.05  # some clamped
+    else:
+        a, b = (torch.rand(4096, 1, 3, generator=g, device=dev) for _ in range(2))
+        u = torch.sort(torch.rand(4096, samples, 1, generator=g, device=dev), dim=1).values
+        pos = (a + (b - a) * u).reshape(-1, 3).contiguous()
+    cot = torch.randn(pos.shape[0], cfg.out_dim, generator=g, device=dev).to(torch.bfloat16)
     launches = hash_encode.launches, hash_encode.backward_launches
     got = hash_encode(pos, table, cfg)
     got.backward(cot)
