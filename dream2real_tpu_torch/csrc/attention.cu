@@ -75,25 +75,40 @@
 // stays in the tile loop, once per score. The probes visit key tile 0 last,
 // so that the weight registers end as the first columns of p.
 //
-// gemm_tma<EPI> (K2's qkv projection, X3's out-projection, and every biased
-// layer of both CLIP towers: qkv on the split path, the out-projection, fc1
-// and fc2): out = epilogue(a @ W + bias [, resid]) for a (M x K), W (K x N)
-// row-major. Bound by the tensor cores: the qkv product is 116 GFLOP, 0.117
-// ms. 128 x 128 output tiles; 64-deep A and W tiles land in
-// 128-byte-swizzled shared memory through TMA (tensor maps built by the
-// launch function; rows past M are zero-filled) in a ring of 3 stages
-// guarded by full / empty mbarriers. Two warpgroups run wgmma m64n128k16 with
-// A K-major and W as the MN-major B operand, one group in flight, and one
-// thread refills a stage as soon as every warp has left it; 96 KB and under
-// 128 registers, so two blocks share an SM and one's epilogue runs under the
-// other's products (a producer warpgroup with setmaxnreg, 4 stages and one
-// block an SM measured 6% slower). The epilogue works on the f32 accumulator
+// gemm_tma<EPI, BN> (K2's qkv projection, X3's out-projection, and every
+// biased layer of both CLIP towers: qkv on the split path, the
+// out-projection, fc1 and fc2): out = epilogue(a @ W + bias [, resid]) for a
+// (M x K), W (K x N) row-major. Bound by the tensor cores: the qkv product at
+// the scoring shape is 116 GFLOP, 0.117 ms. A persistent grid, one block an
+// SM, walks the 128 x BN output tiles (N's innermost, so the blocks at work
+// at once share W and a few rows of a in L2). Warp 8 issues every TMA load
+// (64-deep A and W tiles, 128-byte swizzled, rows past M zero-filled) into a
+// ring guarded by full / empty mbarriers, so the refills never wait for the
+// slowest consumer warp. Two consumer warpgroups (setmaxnreg 216; the
+// producer's warpgroup gives its registers up) each run wgmma m64n256k16
+// (m64n128k16 at BN 128) on 64 rows of the tile, A K-major and W as the
+// MN-major B operand, one group in flight, and arrive on the empty barriers
+// as they leave a stage. Their epilogue works on the f32 accumulator
 // registers: the bias in f32, then one of four tails that round at the
 // reference's places (GemmEpi below: bias; bias + residual rounded once;
-// bias, bf16, QuickGELU; bias, bf16, residual), and stores 16 bytes a thread
-// through a per-warp staging tile. cuBLAS cannot take an f32 bias into its
-// accumulator (addmm rounds the bias to bf16 first), which is why the tower
-// runs on this GEMM.
+// bias, bf16, QuickGELU; bias, bf16, residual), into a staging tile laid out
+// as the output's tensor map cuts it; the residual is already there, loaded
+// by TMA while the tile's products ran. Warps 9-11 then finish QuickGELU on
+// half the staging tile (the consumers take the other half in registers:
+// next to the tensor cores at work the epilogue warps run at about a third
+// of the consumers' rate, and alone they fall behind a tile's products) and
+// store it with TMA, while the consumers run the next tile's products: only
+// the consumers' own epilogue (1,100 of a qkv tile's 21,000 cycles; 5,500
+// with fc1's half of QuickGELU) leaves the tensor cores idle. BN
+// is 256 (3 stages and one staging tile in the 227 KB), or 128 (5 stages,
+// two staging tiles) where N is not a multiple of 256 or 128-wide tiles
+// leave less of the last wave idle (N = 1024 at 18,464 rows: 8.79 waves of
+// 128 against 4.39 of 256). QuickGELU's quotient comes from the
+// special-function unit and is held to the IEEE division's bf16 rounding
+// (quick_gelu). The tile width moves no bit of the output: every element
+// sums the same 64-deep K steps of k16 products in the same order. cuBLAS
+// cannot take an f32 bias into its accumulator (addmm rounds the bias to
+// bf16 first), which is why the tower runs on this GEMM.
 //
 // ln_rows (every LayerNorm of both towers): xn = bf16(LN(x)), one warp a
 // row, written once where the reference rounds. Before a GEMM (K2's LN1,
@@ -268,12 +283,27 @@ __global__ void ln_rows(const bf16* __restrict__ x, const float* __restrict__ g,
 
 // ------------------------------------------------- bf16 GEMM (TMA + wgmma)
 
-constexpr int kGM = 128, kGN = 128, kGK = 64;
-constexpr int kGThreads = 256;  // two warpgroups of 64 rows each
-constexpr int kGATile = kGM * kGK * 2;  // 16 KB
-constexpr int kGBTile = kGK * kGN * 2;  // 16 KB: two chunks of 64 columns
-constexpr int kGStage = kGATile + kGBTile;
-constexpr int kGStages = 3;
+constexpr int kGM = 128, kGK = 64;  // tile rows; K depth of a ring stage
+constexpr int kGThreads = 384;      // warpgroups 0-1 consumers, warpgroup 2 producer + epilogue
+constexpr int kGEpiThreads = 96;    // warps 9-11
+constexpr int kGMaxSmem = 232448;   // the most dynamic shared memory a block may have
+
+// The shared-memory plan of a 128 x BN tile: a ring of stages (the A tile,
+// then W's BN / 64 chunks of 64 x 64), one or two staging tiles (BN / 64
+// boxes of 128 rows x 64 columns, laid out as the output's tensor map cuts
+// it) and the barriers. The ring takes what the rest leaves: 3 stages at
+// BN 256, 5 at BN 128.
+template <int BN>
+struct GemmPlan {
+  static constexpr int kA = kGM * kGK * 2;     // 16 KB
+  static constexpr int kStage = kA + kGK * BN * 2;
+  static constexpr int kStaging = kGM * BN * 2;
+  static constexpr int kBufs = BN == 128 ? 2 : 1;  // staging tiles
+  static constexpr int kStages = (kGMaxSmem - kBufs * kStaging - 1024) / kStage;
+  static constexpr int kSmem =
+      kStages * kStage + kBufs * kStaging + 8 * (2 * kStages + 2 * kBufs);
+  static_assert(kStages >= 3, "the ring needs three stages");
+};
 
 // One box of the tensor map -> shared memory; completion counts on `bar`.
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -285,6 +315,30 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of shared memory -> the tensor map's box at (c_inner, c_outer);
+// rows past the map's edge are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c_inner,
+                                             int c_outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c_inner), "r"(c_outer)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most kPending of the committed stores are still reading their
+// shared memory.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+// Until every committed store is done.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // One box of a 4-d tensor map -> shared memory; completion counts on `bar`.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
@@ -293,6 +347,31 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// d (64 x 256 f32, this warpgroup's accumulator) = or += A (64 x 16, shared,
+// K-major) * B (16 x 256, shared, MN-major).
+__device__ __forceinline__ void wgmma_64x256x16_ss(float (&d)[128], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : D2R_F16(d, 0), D2R_F16(d, 16), D2R_F16(d, 32), D2R_F16(d, 48), D2R_F16(d, 64),
+        D2R_F16(d, 80), D2R_F16(d, 96), D2R_F16(d, 112)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // The epilogues of gemm_tma, on the f32 accumulator y = a @ W + bias (the
@@ -311,122 +390,262 @@ enum GemmEpi { kEpiBias = 0, kEpiBiasResid = 1, kEpiBiasGelu = 2, kEpiBiasThenRe
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+// The same for x that is not NaN, in integer arithmetic (the conversion
+// issues at a quarter of the rate, through the unit the exponentials use).
+__device__ __forceinline__ float bf16_round_int(float x) {
+  const uint32_t b = __float_as_uint(x);
+  return __uint_as_float((b + 0x7FFFu + ((b >> 16) & 1u)) & 0xFFFF0000u);
+}
 
-// The value epilogue kEpi stores for y (and the residual r), before its last
-// bf16 rounding.
+// What the consumers store for y (and the residual r), before its bf16
+// rounding: all of epilogues 0, 1 and 3, and bias_gelu's h.
 template <int kEpi>
 __device__ __forceinline__ float epilogue(float y, float r) {
   if (kEpi == kEpiBiasResid) return r + y;
   if (kEpi == kEpiBiasThenResid) return r + bf16_round(y);
-  if (kEpi == kEpiBiasGelu) {
-    const float h = bf16_round(y);
-    return h * bf16_round(1.0f / (1.0f + expf(-1.702f * h)));  // the product is exact in f32
-  }
   return y;
+}
+
+// QuickGELU of bias_gelu's 2 kWords bf16 values h in w, in place:
+// bf16(h * bf16(s)), s = 1 / (1 + expf(-1.702 h)) as the IEEE division
+// rounds it (the product is exact in f32). The division branches to its
+// slow path a value, which leaves a warp one value's chain at a time; here
+// the reciprocal is rcp.approx refined by one Newton step, which lies
+// within one f32 ulp of the correctly rounded quotient, so both round to
+// the same bf16 unless its low 16 bits lie next to a bf16 rounding boundary
+// (0x8000 +- 1) or y reaches 2^126 (a subnormal or zero quotient, or y
+// infinite or NaN). The values of a call take the division together where
+// any one does (under one call of 16 values in a thousand); the others'
+// chains run side by side.
+template <int kWords>
+__device__ __forceinline__ void quick_gelu(uint32_t (&w)[kWords]) {
+  constexpr int kN = 2 * kWords;
+  float h[kN], s[kN];
+  bool exact = false;
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    h[e] = (e & 1) ? bf16_hi(w[e >> 1]) : bf16_lo(w[e >> 1]);
+    const float y = 1.0f + expf(-1.702f * h[e]);
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(y));
+    s[e] = fmaf(r, fmaf(-y, r, 1.0f), r);
+    exact |= ((__float_as_uint(s[e]) & 0xFFFFu) - 0x7FFFu < 3u) | !(y < 0x1p126f);
+  }
+  if (exact) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) s[e] = 1.0f / (1.0f + expf(-1.702f * h[e]));
+  }
+#pragma unroll
+  for (int e = 0; e < kWords; ++e)
+    w[e] = pack_bf16(h[2 * e] * bf16_round_int(s[2 * e]),
+                     h[2 * e + 1] * bf16_round_int(s[2 * e + 1]));
+}
+
+// bias_gelu's QuickGELU of a tile's first kGeluOwn 8-column chunks is the
+// consumers' (in registers, as they stage the tile), the rest the epilogue
+// warps'. Half and half was the fastest split of fc1 (18,464 x 1,024 ->
+// 4,096) on the H100: 14 or 20 of its 32 chunks ran 3-10% slower.
+template <int BN>
+constexpr int kGeluOwn = BN / 16;
+
+// The tile width for an (M x N) output on `sms` SMs: 256 columns, unless N is
+// not a multiple of 256 or 128-column tiles leave so much less of the last
+// wave idle that it pays for their lower rate (a 128-wide tile takes 0.55 of
+// a 256-wide one's time). At 18,464 rows N = 1024 gives 580 tiles of 256
+// (4.39 waves on 132 SMs, 5 to wait for) or 1,160 of 128 (8.79, 9 to wait
+// for); few rows give few tiles, and the narrow ones fill more SMs.
+int gemm_width(int M, int N, int sms) {
+  if (N % 256) return 128;
+  const long m_tiles = (M + kGM - 1) / kGM;
+  const long w256 = (m_tiles * (N / 256) + sms - 1) / sms;
+  const long w128 = (m_tiles * (N / 128) + sms - 1) / sms;
+  return 55 * w128 < 100 * w256 ? 128 : 256;
 }
 
 // out (M x N) = epilogue kEpi of a @ W + bias for a (M x K), W (K x N)
 // row-major; resid (M x N) for the residual epilogues. map_a: a in boxes of
-// 64 (K) x 128 rows; map_w: W in boxes of 64 (N) x 64 (K), both 128-byte
-// swizzled. K % 64 == 0, N % 128 == 0.
-template <int kEpi>
-__global__ void __launch_bounds__(kGThreads, 2)
+// 64 (K) x 128 rows; map_w: W in boxes of 64 (N) x 64 (K); map_o and map_r:
+// out and resid in boxes of 64 (N) x 128 rows; all 128-byte swizzled.
+// K % 64 == 0, N % BN == 0. A persistent grid: block b takes the 128 x BN
+// output tiles b, b + gridDim.x, ..., N's tiles innermost (see the note at
+// the top for the roles).
+template <int kEpi, int BN>
+__global__ void __launch_bounds__(kGThreads, 1)
     gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
-             const float* __restrict__ bias, const bf16* __restrict__ resid, int M, int K, int N,
-             bf16* __restrict__ out) {
+             const __grid_constant__ CUtensorMap map_o, const __grid_constant__ CUtensorMap map_r,
+             const float* __restrict__ bias, int M, int K, int N) {
+  using P = GemmPlan<BN>;
+  constexpr bool kResid = kEpi == kEpiBiasResid || kEpi == kEpiBiasThenResid;
+  constexpr int kS = P::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
-  unsigned char* gbase = smem_raw;
   if (base & 1023u) __trap();
-  const uint32_t bars = base + kGStages * kGStage;  // full[kGStages], empty[kGStages]
+  constexpr int kB = P::kBufs;
+  const uint32_t stg = base + kS * P::kStage;
+  // full[kS], empty[kS], then each staging tile's two: ready (free, and for
+  // the residual epilogues holding the residual) and done (the consumers'
+  // values in it). Tile ti takes staging tile ti % kB.
+  const uint32_t full = stg + kB * P::kStaging, empty = full + 8 * kS, ready = empty + 8 * kS,
+                 done = ready + 8 * kB;
+  unsigned char* const gstg = smem_raw + kS * P::kStage;
   const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
-  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-  const int nk = K / kGK;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = N / BN, tiles = (M + kGM - 1) / kGM * n_tiles, nk = K / kGK;
 
   if (tid == 0) {
-    for (int s = 0; s < kGStages; ++s) {
-      mbar_init(bars + 8 * s, 1);          // full: the requesting thread's expect_tx arrival
-      mbar_init(bars + 8 * (kGStages + s), 8);  // empty: one arrival per warp
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's expect_tx arrival
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    for (int b = 0; b < kB; ++b) {
+      mbar_init(ready + 8 * b, 1);
+      mbar_init(done + 8 * b, 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     fence_async_proxy();
   }
   __syncthreads();
-  auto request = [&](int kb) {
-    const int s = kb % kGStages;
-    const uint32_t full = bars + 8 * s, sA = base + s * kGStage, sB = sA + kGATile;
-    mbar_expect_tx(full, kGStage);
-    tma_load_2d(sA, &map_a, full, kb * kGK, m0);
-    tma_load_2d(sB, &map_w, full, n0, kb * kGK);
-    tma_load_2d(sB + kGBTile / 2, &map_w, full, n0 + 64, kb * kGK);
-  };
-  if (tid == 0)
-    for (int kb = 0; kb < kGStages && kb < nk; ++kb) request(kb);
 
-  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
-  float acc[64];
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::: "memory");
+    if (warp == 8) {
+      // The producer: every stage of every tile, as soon as the consumers
+      // have left it.
+      if (lane == 0) {
+        int it = 0;
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+          const int m0 = t / n_tiles * kGM, n0 = t % n_tiles * BN;
+          for (int kb = 0; kb < nk; ++kb, ++it) {
+            const int s = it % kS;
+            mbar_wait(empty + 8 * s, ((it / kS) & 1) ^ 1);
+            const uint32_t bar = full + 8 * s, sA = base + s * P::kStage;
+            mbar_expect_tx(bar, P::kStage);
+            tma_load_2d(sA, &map_a, bar, kb * kGK, m0);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  for (int kb = 0; kb < nk; ++kb) {
-    const int s = kb % kGStages;
-    mbar_wait(bars + 8 * s, (kb / kGStages) & 1);
-    const uint32_t sA = base + s * kGStage + wg * (64 * 128), sB = base + s * kGStage + kGATile;
-    const uint64_t dA = sw128_desc(sA, 16, 1024), dB = sw128_desc(sB, kGBTile / 2, 1024);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kGK / 16; ++kk)
-      wgmma_64x128x16_ss<1>(acc, dA + 2 * kk, dB + (2048 >> 4) * kk, 1);
-    wgmma_commit();
-    // One group stays in flight; the one before has finished with its stage.
-    wgmma_wait<1>();
-    if (kb > 0) {
-      const int prev = kb - 1;
-      if (lane == 0) mbar_arrive(bars + 8 * (kGStages + prev % kGStages));
-      if (tid == 0 && prev + kGStages < nk) {
-        mbar_wait(bars + 8 * (kGStages + prev % kGStages), (prev / kGStages) & 1);
-        request(prev + kGStages);
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_2d(sA + P::kA + c * 8192, &map_w, bar, n0 + 64 * c, kb * kGK);
+          }
+        }
       }
-      __syncwarp();  // thread 0's lanes wait for it before the next wgmma
+    } else {
+      // The epilogue warps: hand a staging tile to the consumers (with the
+      // residual in it), finish bias_gelu's QuickGELU in place, and store it.
+      const int et = tid - (kGThreads - kGEpiThreads);
+      int ti = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++ti) {
+        const int m0 = t / n_tiles * kGM, n0 = t % n_tiles * BN, b = ti % kB;
+        const uint32_t sb = stg + b * P::kStaging;
+        unsigned char* const gsb = gstg + b * P::kStaging;
+        if (et == 0) {
+          bulk_wait_read<kB - 1>();  // staging tile b's last store has read it
+          if (kResid) {
+            mbar_expect_tx(ready + 8 * b, P::kStaging);
+#pragma unroll
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_2d(sb + c * 16384, &map_r, ready + 8 * b, n0 + 64 * c, m0);
+          } else {
+            mbar_arrive(ready + 8 * b);
+          }
+        }
+        mbar_wait(done + 8 * b, (ti / kB) & 1);
+        if (kEpi == kEpiBiasGelu) {
+          // The 8-column chunks right of the consumers' share, row by row,
+          // two a step for sixteen chains in flight. A chunk's place in its
+          // box is swizzled by the row.
+          constexpr int kRow = BN / 8 - kGeluOwn<BN>, kItems = kGM * kRow;
+          auto chunk = [&](int k) {
+            const int r = k / kRow, cc = kGeluOwn<BN> + k % kRow;
+            return reinterpret_cast<uint4*>(gsb + (cc >> 3) * 16384 + sw128_off(r, cc & 7));
+          };
+          for (int k = et; k < kItems; k += 2 * kGEpiThreads) {
+            const bool two = k + kGEpiThreads < kItems;
+            uint4* c0 = chunk(k);
+            uint4* c1 = chunk(two ? k + kGEpiThreads : k);
+            const uint4 u0 = *c0, u1 = *c1;
+            uint32_t w[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+            quick_gelu(w);
+            *c0 = make_uint4(w[0], w[1], w[2], w[3]);
+            if (two) *c1 = make_uint4(w[4], w[5], w[6], w[7]);
+          }
+          fence_async_proxy();  // the store reads what the generic proxy wrote
+        }
+        named_barrier(1, kGEpiThreads);
+        if (et == 0) {
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c) tma_store_2d(&map_o, sb + c * 16384, n0 + 64 * c, m0);
+          bulk_commit();
+        }
+      }
+      if (et == 0) bulk_wait_all();
     }
-  }
-  wgmma_wait<0>();
-  __syncthreads();  // every warp is done with the ring: stage through it
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+    // The consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile.
+    const int quad = lane & 3;
+    const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's first row
+    float acc[BN / 2];
+    int it = 0, ti = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++ti) {
+      const int n0 = t % n_tiles * BN;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int s = it % kS;
+        mbar_wait(full + 8 * s, (it / kS) & 1);
+        const uint32_t sA = base + s * P::kStage;
+        const uint64_t dA = sw128_desc(sA + wg * 8192, 16, 1024);
+        const uint64_t dB = sw128_desc(sA + P::kA, 8192, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kGK / 16; ++kk) {
+          if constexpr (BN == 256)
+            wgmma_64x256x16_ss(acc, dA + 2 * kk, dB + (2048 >> 4) * kk, kb > 0 || kk > 0);
+          else
+            wgmma_64x128x16_ss<1>(acc, dA + 2 * kk, dB + (2048 >> 4) * kk, kb > 0 || kk > 0);
+        }
+        wgmma_commit();
+        // One group stays in flight; the one before has left its stage.
+        wgmma_wait<1>();
+        if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kS));
+        __syncwarp();
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kS));
+      __syncwarp();
 
-  // Epilogue through a per-warp staging tile of 16 rows x 128 columns (256
-  // bytes a row, 16-byte chunks XOR-swizzled by the row).
-  unsigned char* stg = gbase + warp * 4096;
-  const int mw = m0 + warp * 16;  // this warp's first row (warps 0-7 in row order)
-  constexpr bool kResid = kEpi == kEpiBiasResid || kEpi == kEpiBiasThenResid;
-  if (kResid) {
+      // The tile's values into the staging tile, where the epilogue warps
+      // take them: bias in f32, the epilogue's tail, one bf16 rounding, and
+      // bias_gelu's QuickGELU on the first kGeluOwn chunks of columns. Eight
+      // values a step: columns j and j + 1 of rows r0 and r0 + 8.
+      const int b = ti % kB;
+      unsigned char* const gsb = gstg + b * P::kStaging;
+      mbar_wait(ready + 8 * b, (ti / kB) & 1);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = 2 * i + (lane >> 4), c = lane & 15;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (mw + r < M)
-        u = *reinterpret_cast<const uint4*>(resid + size_t(mw + r) * N + n0 + c * 8);
-      *reinterpret_cast<uint4*>(stg + r * 256 + ((c ^ (r & 7)) << 4)) = u;
+      for (int j = 0; j < BN / 8; j += 2) {
+        uint32_t* cell[4];
+        float y[8];
+        uint32_t w[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {  // c: column j + (c >> 1), row r0 + 8 (c & 1)
+          const int jj = j + (c >> 1), r = r0 + 8 * (c & 1);
+          const float2 bj = *reinterpret_cast<const float2*>(bias + n0 + 8 * jj + 2 * quad);
+          cell[c] = reinterpret_cast<uint32_t*>(gsb + (jj >> 3) * 16384 + sw128_off(r, jj & 7) +
+                                                quad * 4);
+          y[2 * c] = acc[4 * jj + 2 * (c & 1)] + bj.x;
+          y[2 * c + 1] = acc[4 * jj + 2 * (c & 1) + 1] + bj.y;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t rv = kResid ? *cell[c] : 0u;
+          w[c] = pack_bf16(epilogue<kEpi>(y[2 * c], bf16_lo(rv)),
+                           epilogue<kEpi>(y[2 * c + 1], bf16_hi(rv)));
+        }
+        if (kEpi == kEpiBiasGelu && j < kGeluOwn<BN>) quick_gelu(w);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) *cell[c] = w[c];
+      }
+      fence_async_proxy();  // the store reads what the generic proxy wrote
+      __syncwarp();
+      if (lane == 0) mbar_arrive(done + 8 * b);
     }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const float2 bj = *reinterpret_cast<const float2*>(bias + n0 + 8 * j + 2 * quad);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = (lane >> 2) + 8 * h;
-      uint32_t* cell = reinterpret_cast<uint32_t*>(stg + r * 256 + ((j ^ (r & 7)) << 4) + quad * 4);
-      const float y0 = acc[4 * j + 2 * h] + bj.x, y1 = acc[4 * j + 2 * h + 1] + bj.y;
-      const uint32_t rv = kResid ? *cell : 0u;
-      *cell = pack_bf16(epilogue<kEpi>(y0, bf16_lo(rv)), epilogue<kEpi>(y1, bf16_hi(rv)));
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = 2 * i + (lane >> 4), c = lane & 15;
-    if (mw + r < M)
-      *reinterpret_cast<uint4*>(out + size_t(mw + r) * N + n0 + c * 8) =
-          *reinterpret_cast<const uint4*>(stg + r * 256 + ((c ^ (r & 7)) << 4));
   }
 }
 
@@ -957,23 +1176,36 @@ bool make_head_map(CUtensorMap* map, const void* ptr, int B, int H, int T, const
          CUDA_SUCCESS;
 }
 
+template <int kEpi, int BN>
+int launch_gemm_tiles(const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap& mo,
+                      const CUtensorMap& mr, const float* bias, int M, int K, int N, int sms,
+                      cudaStream_t stream) {
+  static std::atomic<unsigned long long> configured{0};  // per instantiation
+  cudaError_t err = allow_smem(gemm_tma<kEpi, BN>, GemmPlan<BN>::kSmem, &configured);
+  if (err != cudaSuccess) return int(err);
+  const long tiles = long((M + kGM - 1) / kGM) * (N / BN);
+  gemm_tma<kEpi, BN><<<int(tiles < sms ? tiles : sms), kGThreads, GemmPlan<BN>::kSmem, stream>>>(
+      ma, mw, mo, mr, bias, M, K, N);
+  return int(cudaGetLastError());
+}
+
 template <int kEpi>
 int launch_gemm(const void* a, const void* w, const void* bias, const void* resid, int M, int K,
                 int N, void* out, cudaStream_t stream) {
-  if (K % kGK || N % kGN) return int(cudaErrorInvalidValue);
-  CUtensorMap map_a, map_w;
-  if (!make_map(&map_a, a, M, K, kGM) || !make_map(&map_w, w, K, N, kGK))
+  if (K % kGK || N % 128) return int(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_w, map_o, map_r;
+  if (!make_map(&map_a, a, M, K, kGM) || !make_map(&map_w, w, K, N, kGK) ||
+      !make_map(&map_o, out, M, N, kGM) || (resid && !make_map(&map_r, resid, M, N, kGM)))
     return int(cudaErrorInvalidValue);
-  const float* bp = static_cast<const float*>(bias);
-  const bf16* rp = static_cast<const bf16*>(resid);
-  bf16* op = static_cast<bf16*>(out);
-  constexpr int smem = kGStages * kGStage + 16 * kGStages;  // the ring and its barriers
-  static std::atomic<unsigned long long> configured{0};
-  cudaError_t err = allow_smem(gemm_tma<kEpi>, smem, &configured);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return int(err);
-  dim3 grid(N / kGN, (M + kGM - 1) / kGM);
-  gemm_tma<kEpi><<<grid, kGThreads, smem, stream>>>(map_a, map_w, bp, rp, M, K, N, op);
-  return int(cudaGetLastError());
+  const float* bp = static_cast<const float*>(bias);
+  const CUtensorMap& mr = resid ? map_r : map_o;  // unread without a residual
+  if (gemm_width(M, N, sms) == 256)
+    return launch_gemm_tiles<kEpi, 256>(map_a, map_w, map_o, mr, bp, M, K, N, sms, stream);
+  return launch_gemm_tiles<kEpi, 128>(map_a, map_w, map_o, mr, bp, M, K, N, sms, stream);
 }
 
 // out (M x N) = epilogue `epi` (GemmEpi) of a @ W + bias; resid for the
@@ -1067,7 +1299,7 @@ extern "C" int d2r_ln_gemm(const void* x, const void* g, const void* beta, const
                            const void* bias, const void* resid, int M, int K, int N, float eps,
                            int epi, void* xn, void* out, void* stream) {
   if (M <= 0) return 0;
-  if (K % kGK || N % kGN) return int(cudaErrorInvalidValue);
+  if (K % kGK || N % 128) return int(cudaErrorInvalidValue);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const int err = launch_ln_rows(x, g, beta, M, K, eps, xn, cs);
   if (err != int(cudaSuccess)) return err;

@@ -662,11 +662,14 @@ def test_keys_past_T_weigh_exactly_zero(dev, T, mode):
     assert float(out.float().abs().max()) < 10.0
 
 
-@pytest.mark.parametrize("M", [1, 127, 128, 129, 18464])
+@pytest.mark.parametrize("M", [1, 32, 127, 128, 129, 4225, 18464])
 def test_gemm_ragged_rows(dev, M):
     """The TMA + wgmma GEMM with the LN pass (K2's qkv projection) and with
     the bias + residual epilogue (X3's out-projection), with and without a
-    residual, element by element within one bf16 step of the plain version
+    residual, at ragged rows, the class token's 32, 4,225 (34 row tiles:
+    272 tiles of 128 x 128 at N 1024, two waves on 132 SMs and a few more)
+    and the scoring shape's 18,464 (145 row tiles, several a block at both
+    widths), element by element within one bf16 step of the plain version
     (2^-7 |plain|) plus a slack: 5e-4 where the product is all of the result,
     2e-3 with a residual and behind the LN pass (whose row sums run in
     another order than torch's and move a bf16 rounding of an LN output now
@@ -729,11 +732,14 @@ TOWER_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024), (768, 23
                 (768, 768), (768, 3072), (3072, 768)]
 
 
-@pytest.mark.parametrize("M", [1, 77, 128, 129, 18464])
+@pytest.mark.parametrize("M", [1, 77, 128, 129, 342, 1409, 18464])
 @pytest.mark.parametrize("K,N", TOWER_SHAPES)
 def test_epilogue_gemms_match_plain(dev, K, N, M):
     """The tower's three GEMM epilogues at both towers' widths, on 3 x M
-    rows (ragged, and three clip groups' 18,464 each), element by element within one bf16 step of the plain version
+    rows (ragged; 1,026 and 4,227, whose 9 and 34 row tiles give N 4096 and
+    N 1024 two waves of tiles and a few more on 132 SMs; three clip groups'
+    18,464 each), each width's tile (256 or 128 columns) as the launcher
+    picks it, element by element within one bf16 step of the plain version
     (2^-7 |plain|) plus 2^-20 of the element's sum of |products|: the
     tensor cores and cuBLAS's f32 GEMM each round the f32 sum in their own
     order, about 2^-23 of that sum apart (measured on the H100), which moves
@@ -762,6 +768,47 @@ def test_epilogue_gemms_match_plain(dev, K, N, M):
         assert fn.launches == n + 1 and got.shape == (3, M, N)
         assert torch.equal(getattr(att, name + "_plain")(*args), after(layer))
         assert float(after_excess(got, layer, after, slack).max()) <= 0.0, name
+
+
+@pytest.mark.parametrize("epilogue", list(att.EPILOGUES))
+def test_gemm_repeats_bit_for_bit(dev, epilogue):
+    """Each epilogue at 18,464 x 1,024 -> 4,096 (fc1's shape: 2,320 tiles,
+    18 a block) gives the same bits call after call: no tile's sum depends
+    on which block or when it ran. Widths off the K % 64 or N % 128 grid are
+    refused."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    M, K, N = 18464, 1024, 4096
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=gen, device=dev) * K**-0.5).to(torch.bfloat16)
+    b = torch.randn(N, generator=gen, device=dev) * 0.1
+    r = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+    resid = r if epilogue.endswith("resid") else None
+    first = att._gemm(x, w, b, resid, epilogue, "repeat")
+    for _ in range(3):
+        assert torch.equal(att._gemm(x, w, b, resid, epilogue, "repeat"), first), epilogue
+    for k_, n_ in ((K - 32, N), (K, N - 64)):
+        with pytest.raises(ValueError):
+            att._gemm(x[:, :k_].contiguous(), w[:k_, :n_].contiguous(), b[:n_], None, "bias",
+                      "off-grid")
+
+
+def test_quick_gelu_on_every_bf16_value(dev):
+    """bias_gelu on W = 0 with the bias running through every bf16 value h,
+    side by side and each alone among seven zeros: the kernel's QuickGELU (a
+    reciprocal from the special-function unit, held to the IEEE division's
+    bf16 rounding) is the plain version's h * bf16(sigmoid(1.702 h)) bit for
+    bit, in the consumers' and the epilogue warps' halves of 256-wide tiles
+    and in 128-wide tiles (the first 1,024 columns alone)."""
+    h = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16)
+    h = h.view(torch.bfloat16).float()
+    alone = torch.zeros(8 * h.numel(), device=dev)
+    alone[::8] = h
+    x = torch.zeros(1, 64, dtype=torch.bfloat16, device=dev)
+    for b in (h, alone, h[:1024].contiguous()):
+        w = torch.zeros(64, b.numel(), dtype=torch.bfloat16, device=dev)
+        got, want = att.linear_bias_gelu(x, w, b), att.linear_bias_gelu_plain(x, w, b)
+        same = (got.view(torch.int16) == want.view(torch.int16)) | (got.isnan() & want.isnan())
+        assert bool(same.all()), (b.numel(), int((~same).sum()))
 
 
 def _ln_excess(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
