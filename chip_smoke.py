@@ -31,7 +31,8 @@ Phases (any failure raises; the exit code is then nonzero):
                 the weight-gradient products, timed from the profiler's
                 kernel table, the products held against f32 act^T delta
                 over the scratch of a one-chunk K7 call), H1 at 4096 rays x
-                64 ray-ordered samples; each kernel's ptxas registers and
+                64 ray-ordered samples, H2 on the clip group's crop rays
+                through an instant-ngp field; each kernel's ptxas registers and
                 spills, and the C75xx (wgmma serialisation) lines of each
                 source counted. Each row fails the run where its kernel
                 lies beyond the card tests' tolerance of that kernel; the
@@ -152,7 +153,7 @@ Phases (any failure raises; the exit code is then nonzero):
                 graph (the host launching H1 only at the warm-up and the
                 capture; steps/s, held-out PSNR over 22 dB, the last 50
                 steps' loss under half the first 50's); one clip group with
-                the hash-grid field as the movable's, no K1 launch
+                the hash-grid field as the movable's, one H2 launch and no K1
   R ref scale   experiments/run_refscale.py (70,000 shopping poses through
                 optimise_pose_grid, a field trained 500 steps, the
                 full-size random ViT-L/14-336; sustained poses/s, peak
@@ -1020,6 +1021,63 @@ def periphery_phase(dev, smi, counters, ctx) -> dict:
     return launches
 
 
+#: H2 against render_rays: tests/test_torch_cuda.py's tolerance (rgb and
+#: alpha, depth over the far plane; the twin's cuBLAS sums and torch
+#: reductions add in other orders, so a layer's output may round to the
+#: neighbouring bf16 value now and then).
+H2_TOL = 5e-3
+H2_NAME = "hash_march (H2)"
+
+
+def hash_march_record(dev, record, aabb, crop_args, crop_settings) -> None:
+    """H2's row of the kernel table: one clip group of phase 2's crop rays
+    marched through an instant-ngp field at the published widths (its table
+    uniform in +-1, features of order one) against its twin render_rays.
+    The bound counts the needed samples' interpolation and MLP operations
+    and the live rays' bytes, not the corner reads
+    (benchmark/metrics/_hash_march.py)."""
+    from benchmark.metrics import _hash_march
+    from dream2real_tpu_torch.nerf import combined, hash_march as hm, march_kernel as mk
+    from dream2real_tpu_torch.nerf.hashgrid import HashGridConfig
+    from dream2real_tpu_torch.nerf.model import NGPConfig, init_ngp_params
+    from dream2real_tpu_torch.nerf.render import render_rays
+
+    cfg = NGPConfig(field_type="hashgrid", grid=HashGridConfig(), **aabb)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    field = init_ngp_params(cfg, gen, device=dev)
+    with torch.no_grad():
+        field.table.uniform_(-1.0, 1.0, generator=gen)
+    T_WC_2, _, _, dirs = combined.crop_rays(*crop_args)
+    origins = T_WC_2[:, :3, 3].contiguous()
+    box = crop_args[2]
+    st = crop_settings
+    packed = hm.pack(field)
+    got = hm.march_rays_hash(packed, origins, dirs, box, st)
+    want = render_rays(field, origins[:, None].expand(dirs.shape), dirs, st, march_aabb=box)
+    if float(got["alpha"].max()) <= 0.0:
+        raise AssertionError("H2: the crop renders are empty")
+    t0, t1 = mk.march_ranges(origins, dirs, box, st)
+    live = t1 > t0
+    w = want["weights"].double().reshape(live.numel(), -1)
+    needed = int(((1.0 - torch.cumsum(w, -1) + w >= st.min_transmittance) & live[:, None]).sum())
+    g = cfg.grid
+    fdict = {"grid": {"n_levels": g.n_levels, "n_features": g.n_features,
+                      "log2_hashmap_size": g.log2_hashmap_size},
+             "hidden_dim": cfg.hidden_dim, "n_density_layers": cfg.n_density_layers,
+             "geo_feat_dim": cfg.geo_feat_dim, "sh_degree": cfg.sh_degree,
+             "color_width": cfg.color_width, "n_color_layers": cfg.n_color_layers}
+    flops, nbytes = _hash_march.flops_bytes(fdict, needed, int(live.sum()), 1)
+    log(f"  H2: {dirs.shape[0]} poses x {dirs.shape[1]} rays x {st.n_coarse} samples; "
+        f"{int(live.sum())} rays hit the box; {needed} samples needed")
+    record(H2_NAME, "dream2real_tpu_torch/csrc/hash_march.cu", "none (render_rays on H1)",
+           worst(gap(got[k], want[k], H2_TOL * (st.far if k == "depth" else 1.0))
+                 for k in ("rgb", "alpha", "depth")),
+           time_ms(lambda: hm.march_rays_hash(packed, origins, dirs, box, st), 10),
+           time_ms(lambda: render_rays(field, origins[:, None].expand(dirs.shape), dirs, st,
+                                       march_aabb=box), 3),
+           flops, nbytes, None)
+
+
 # Phase H: the hash-grid field at full width (HashGridConfig()'s defaults,
 # hidden_dim 64), trained through H1 and the step's graph on phase T's scan.
 HG_POINTS = 1 << 20
@@ -1102,11 +1160,11 @@ def hashgrid_phase(dev, smi, st, bg_field, render_args) -> tuple:
     """Phase H: H1 (hash_encode on the card) and its table gradient against
     the CPU path; the field trained on phase T's scan through H1 and the
     step's graph (steps/s, held-out PSNR, the loss); one clip group rendered
-    with a hash-grid fg field (no K1). -> the host's H1 launches (forward,
-    backward) for that training."""
+    with a hash-grid fg field (one H2 launch, no K1). -> the host's H1
+    launches (forward, backward) for that training."""
     from dream2real_tpu_torch.cli.selftest import SELFTEST_AABB, SETTINGS, VIEW, _score
     from dream2real_tpu_torch.data import synth
-    from dream2real_tpu_torch.nerf import combined, march_kernel as mk
+    from dream2real_tpu_torch.nerf import combined, hash_march, march_kernel as mk
     from dream2real_tpu_torch.nerf.hashgrid import HashGridConfig, hash_encode, init_hash_table
     from dream2real_tpu_torch.nerf.model import NGPConfig
     from dream2real_tpu_torch.nerf.trainer import (TrainConfig, init_train_state,
@@ -1199,20 +1257,22 @@ def hashgrid_phase(dev, smi, st, bg_field, render_args) -> tuple:
     if not psnr > 22.0:
         raise AssertionError(f"H: held-out PSNR {psnr:.2f} dB, not over 22")
 
-    # One clip group with the hash-grid field as the movable's: render_rays,
-    # not K1.
+    # One clip group with the hash-grid field as the movable's: H2, one
+    # launch, not K1.
     renderer = combined.CombinedRenderer(field, bg_field, device=dev, **render_args["renderer"])
-    mk.march.launches = 0
+    mk.march.launches = hash_march.hash_march.launches = 0
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         imgs = renderer.render(**render_args["render"])
         torch.cuda.synchronize()
         t_group = time.perf_counter() - t0
+    h2 = hash_march.hash_march.launches
     log(f"  H: one clip group ({len(imgs)} poses) with the hash-grid fg field in {t_group:.2f} s; "
-        f"K1 launches {mk.march.launches}")
-    if mk.march.launches != 0 or imgs.shape[1:] != (336, 336, 3):
-        raise AssertionError("H: the hash-grid group launched K1 or rendered the wrong shape")
+        f"H2 launches {h2}, K1 launches {mk.march.launches}")
+    if mk.march.launches != 0 or h2 != 1 or imgs.shape[1:] != (336, 336, 3):
+        raise AssertionError("H: the hash-grid group launched K1, not H2 once, or rendered the "
+                             "wrong shape")
     return host
 
 
@@ -2082,6 +2142,10 @@ def main() -> int:
         del C, A, D, fwd_plain, g_k7, g_plain, g_one
     hash_kernel_records(dev, record, cams, dirs_cam,
                         (SELFTEST_AABB["aabb_min"], SELFTEST_AABB["aabb_max"]))
+    with torch.inference_mode():
+        hash_march_record(dev, record, SELFTEST_AABB,
+                          (dirs_cam, K, obj_aabb, crop, T_WO, T_WC, poses[:clip_batch]),
+                          crop_settings)
 
     # ------------------------------------------------------ A attention bench
     phase("A attention bench (experiments/bench_attention.main, full shape, 3 reps)")

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("march", "attention", "train", "hashgrid")
+SOURCES = ("march", "attention", "train", "hashgrid", "hash_march")
 # No --use_fast_math: the march's sin/cos arguments reach 2^9*pi rad, where
 # the fast intrinsics are wrong, and fast math flushes the denormals that the
 # clamp softmax exp(min(s, 70) - 70) produces for logits below about -17.

@@ -35,77 +35,26 @@
 // together; F features of a corner are one vector load (and, for F = 2, one
 // float2 atomic). The level's resolution and kind come as kernel arguments
 // (a struct by value), so a launch copies nothing from the host and can be
-// captured in a CUDA graph.
+// captured in a CUDA graph. The level's arithmetic (the cell, the corners'
+// rows and weights, the sum) is hash.cuh's, which H2 (hash_march.cu) shares.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 32;
+using hashenc::Levels;
+using hashenc::kMaxLevels;
+
 constexpr int kThreads = 256;
-constexpr uint32_t kPrimeY = 2654435761u;
-constexpr uint32_t kPrimeZ = 805459861u;
 
-struct Levels {
-  int res[kMaxLevels];
-  int dense[kMaxLevels];
-};
-
-// The cell and the interpolation weights of point p at resolution res.
-__device__ __forceinline__ void locate(const float* __restrict__ pos, int p, int res,
-                                       uint32_t x0[3], float w[3]) {
+// Point p's position, clamped to [0, 1]^3.
+__device__ __forceinline__ void clamped(const float* __restrict__ pos, int p, float q[3]) {
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float q = fminf(fmaxf(pos[3 * p + d], 0.0f), 1.0f);
-    const float xf = __fmul_rn(q, float(res));
-    const int xi = min(max(int(floorf(xf)), 0), res - 1);
-    x0[d] = uint32_t(xi);
-    w[d] = __fsub_rn(xf, float(xi));
-  }
-}
-
-// Corner c's table row (x fastest) and weight.
-__device__ __forceinline__ uint32_t corner(int c, const uint32_t x0[3], const float w[3], int res,
-                                           bool dense, uint32_t mask, float* weight) {
-  const uint32_t x = x0[0] + (c & 1), y = x0[1] + ((c >> 1) & 1), z = x0[2] + ((c >> 2) & 1);
-  const float wx = (c & 1) ? w[0] : __fsub_rn(1.0f, w[0]);
-  const float wy = (c & 2) ? w[1] : __fsub_rn(1.0f, w[1]);
-  const float wz = (c & 4) ? w[2] : __fsub_rn(1.0f, w[2]);
-  *weight = __fmul_rn(__fmul_rn(wx, wy), wz);
-  uint32_t idx;
-  if (dense) {
-    const uint32_t s = uint32_t(res) + 1u;
-    idx = x + s * (y + s * z);
-  } else {
-    idx = x ^ (y * kPrimeY) ^ (z * kPrimeZ);
-  }
-  return idx & mask;
-}
-
-template <int F>
-struct Vec;
-template <>
-struct Vec<1> { using T = float; };
-template <>
-struct Vec<2> { using T = float2; };
-template <>
-struct Vec<4> { using T = float4; };
-
-template <int F>
-__device__ __forceinline__ void load_row(const float* __restrict__ row, float out[F]) {
-  if constexpr (F == 8) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(row));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-  } else {
-    const typename Vec<F>::T v = __ldg(reinterpret_cast<const typename Vec<F>::T*>(row));
-    const float* f = reinterpret_cast<const float*>(&v);
-#pragma unroll
-    for (int i = 0; i < F; ++i) out[i] = f[i];
-  }
+  for (int d = 0; d < 3; ++d) q[d] = hashenc::hash_clamp01(pos[3 * p + d]);
 }
 
 template <int F>
@@ -115,24 +64,10 @@ __global__ void __launch_bounds__(kThreads)
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= n * L) return;
   const int p = t / L, l = t - p * L;
-  const int res = lv.res[l];
-  const bool dense = lv.dense[l] != 0;
-  uint32_t x0[3];
-  float w[3];
-  locate(pos, p, res, x0, w);
-  const float* level = table + size_t(l) * T * F;
+  float q[3];
+  clamped(pos, p, q);
   float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    float wc;
-    const uint32_t idx = corner(c, x0, w, res, dense, T - 1u, &wc);
-    float e[F];
-    load_row<F>(level + size_t(idx) * F, e);
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(e[f], wc));
-  }
+  hashenc::hash_level<F>(q, table + size_t(l) * T * F, lv.res[l], lv.dense[l] != 0, T - 1u, acc);
   __nv_bfloat16* o = out + size_t(t) * F;
 #pragma unroll
   for (int f = 0; f < F; ++f) o[f] = __float2bfloat16_rn(acc[f]);
@@ -147,9 +82,11 @@ __global__ void __launch_bounds__(kThreads)
   const int p = t / L, l = t - p * L;
   const int res = lv.res[l];
   const bool dense = lv.dense[l] != 0;
+  float q[3];
+  clamped(pos, p, q);
   uint32_t x0[3];
   float w[3];
-  locate(pos, p, res, x0, w);
+  hashenc::hash_locate(q, res, x0, w);
   float g[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) g[f] = __bfloat162float(dout[size_t(t) * F + f]);
@@ -157,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     float wc;
-    const uint32_t idx = corner(c, x0, w, res, dense, T - 1u, &wc);
+    const uint32_t idx = hashenc::hash_corner(c, x0, w, res, dense, T - 1u, &wc);
     float* row = level + size_t(idx) * F;
     if constexpr (F == 2) {
       atomicAdd(reinterpret_cast<float2*>(row), make_float2(__fmul_rn(g[0], wc),

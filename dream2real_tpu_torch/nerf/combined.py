@@ -2,7 +2,8 @@
 renderer (port of dream2real_tpu/nerf/combined.py).
 
 Per candidate pose: virtual-camera trick, fg march inside the object's
-projected crop window (K1, all poses of a group in one launch), per-pixel
+projected crop window (K1 for the flagship field, H2 for an instant-ngp
+hash-grid field on the card; all poses of a group in one launch), per-pixel
 depth test against the background (< 0.05 -> 100 guard), unpremultiply,
 linear -> sRGB, u8, alpha < 130 -> black, pasted into the precomputed
 background frame. The whole group stays on the device: crop windows are
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from dream2real_tpu_torch.device import F32, resolve_device
+from dream2real_tpu_torch.nerf import hash_march
 from dream2real_tpu_torch.nerf.march_kernel import march_rays_fused, pack_params, supports
 from dream2real_tpu_torch.nerf.model import NGPField
 from dream2real_tpu_torch.nerf.render import RenderSettings, render_image, render_rays
@@ -147,6 +149,27 @@ def crop_rays(dirs_cam, intrinsics, obj_aabb, crop: int, T_WO_1, T_WC_1, T_WO_2)
     return T_WC_2, rows, cols, dirs.reshape(P, crop * crop, 3)
 
 
+def pack_crop(fg: NGPField, crop_settings: RenderSettings, device):
+    """The fg field laid out once for its crop kernel, the one place that
+    chooses it: K1's pack for the flagship field, H2's for a hash-grid field
+    on the card; None where the crop render is the plain ``render_rays``
+    (any other field, and a hash-grid field on the CPU). A hash-grid field
+    on the card that H2 does not cover raises: its plain render would cost
+    several times H2's, unseen."""
+    if supports(fg.cfg, crop_settings):
+        return pack_params(fg)
+    if fg.cfg.field_type != "hashgrid" or torch.device(device).type != "cuda":
+        return None
+    if not hash_march.supports(fg.cfg, crop_settings):
+        g = fg.cfg.grid
+        raise ValueError(
+            f"pack_crop: H2 covers hash-grid fields of {hash_march.IN} encoded features as "
+            f"(levels, features) {hash_march.LAYOUTS}, hidden {hash_march.HIDDEN}, degree-4 SH, "
+            f"at crop settings without fine samples; got {g.n_levels} x {g.n_features}, hidden "
+            f"{fg.cfg.hidden_dim}, SH {fg.cfg.sh_degree}, n_fine {crop_settings.n_fine}")
+    return hash_march.pack(fg)
+
+
 def render_pose_cropped(
     fg: NGPField,
     settings: RenderSettings,
@@ -165,18 +188,21 @@ def render_pose_cropped(
     each pose's crop window with a tight t-range, composited into the
     background frame. -> (P, res, res, 3) u8.
 
-    The flagship field goes through K1, all P poses in one launch
-    (``packed`` = march_kernel.pack_params(fg), computed here if absent);
-    any other field through the plain render_rays. With ``intrinsics`` and
-    ``obj_aabb`` on the device and ``packed`` given, the K1 path issues its
-    work without waiting for the device."""
+    The kernel follows ``packed`` (``pack_crop``'s, computed here if
+    absent): K1 for the flagship field, H2 for a hash-grid field on the
+    card, all P poses in one launch; without one, the plain render_rays.
+    With ``intrinsics`` and ``obj_aabb`` on the device and ``packed`` given,
+    the K1 and H2 paths issue their work without waiting for the device."""
     P = T_WO_2.shape[0]
     res = dirs_cam.shape[0]
     T_WC_2, rows, cols, dirs = crop_rays(dirs_cam, intrinsics, obj_aabb, crop, T_WO_1, T_WC_1,
                                          T_WO_2)
-    if supports(fg.cfg, settings):
-        out = march_rays_fused(packed or pack_params(fg), T_WC_2[:, :3, 3], dirs, obj_aabb,
-                               settings)
+    if packed is None:
+        packed = pack_crop(fg, settings, dirs.device)
+    if isinstance(packed, hash_march.HashMarchParams):
+        out = hash_march.march_rays_hash(packed, T_WC_2[:, :3, 3], dirs, obj_aabb, settings)
+    elif packed is not None:
+        out = march_rays_fused(packed, T_WC_2[:, :3, 3], dirs, obj_aabb, settings)
     else:
         origins = T_WC_2[:, None, :3, 3].expand(dirs.shape)
         out = render_rays(fg, origins, dirs, settings, march_aabb=obj_aabb)
@@ -334,9 +360,7 @@ class CombinedRenderer:
             raise ValueError("T_WO_1 (movable object pose) is required")
         T_WO_1 = self._f32(T_WO_1).reshape(4, 4)
         use_crop = bool(self.fg_crop) and self.obj_aabb is not None
-        packed = None
-        if use_crop and supports(self.fg.cfg, self.crop_settings):
-            packed = pack_params(self.fg)
+        packed = pack_crop(self.fg, self.crop_settings, self.device) if use_crop else None
 
         k = valid_poses.shape[0]
         p = min(self.poses_per_dispatch, max(k, 1))

@@ -6,9 +6,11 @@ Two field types, as in the reference:
   depth MLP trunk -> (log-density, geo features);
 - ``field_type="hashgrid"``: the multiresolution hash encoding
   (nerf/hashgrid.py; H1 on the card) -> bias-free density layers ->
-  (log-density, geo features). The march and training kernels cover the
-  mlp field only, so this field renders through ``render.render_rays`` and
-  trains through autograd around H1, as the JAX package trains it.
+  (log-density, geo features). The training kernels and K1 cover the mlp
+  field only: this field trains through autograd around H1, as the JAX
+  package trains it, and renders through ``render.render_rays``, but for
+  the imagine loop's crop render on the card, which is H2
+  (``nerf/hash_march.py``) at instant-ngp's widths.
 
 Both feed an SH-conditioned colour head. Numerics follow the reference:
 bf16 matmul inputs with f32 accumulation, bf16 casts between layers, f32

@@ -2,7 +2,8 @@
 dream2real_tpu/parallel/imagine.py::make_imagine_and_score).
 
 Per group of ``clip_batch`` candidate poses: render every pose (crop path:
-one K1 launch for the group), composite over the background, rot90 k=1,
+one K1 launch for the group, or one H2 launch for a hash-grid field on the
+card), composite over the background, rot90 k=1,
 CLIP-preprocess, encode with the image tower (K2 in 23 of 24 blocks),
 logits against the precomputed text embeddings, and reduce to one score per
 pose.
@@ -36,9 +37,9 @@ from dream2real_tpu_torch.device import F32, resolve_device
 from dream2real_tpu_torch.nerf.combined import (
     BackgroundView,
     background_only_image,
+    pack_crop,
     render_pose_batch,
 )
-from dream2real_tpu_torch.nerf.march_kernel import pack_params, supports
 from dream2real_tpu_torch.nerf.model import NGPConfig, NGPField
 from dream2real_tpu_torch.nerf.render import RenderSettings
 from dream2real_tpu_torch.parallel.mesh import run_shards
@@ -139,7 +140,7 @@ def make_imagine_and_score(
             bg_only = packed = None
             if use_crop:
                 bg_only = background_only_image(bg_d)
-                packed = pack_params(fg_d) if supports(fg.cfg, crop_settings) else None
+                packed = pack_crop(fg_d, crop_settings, d)
             per_dev[d] = (
                 fg_d, clip_model if mesh is None else replica(clip_model, d),
                 torch.as_tensor(T_WO_1, dtype=F32, device=d),

@@ -1002,3 +1002,204 @@ def test_fused_score_on_the_card_saves_what_it_scores(dev, tmp_path, monkeypatch
         for i in (0, 9):
             np.testing.assert_array_equal(
                 read_png(str(tmp_path / d / f"cb_rgb_{i:04d}.png")), renders[i])
+
+
+# ------------------------------------------------------------------ H2
+
+
+#: The encoding's two layouts of 32 features that H2 covers: the paper's
+#: 16 levels of 2, and 8 of 4.
+H2_LAYOUTS = pytest.mark.parametrize("layout", [(16, 2), (8, 4)], ids=["16x2", "8x4"])
+
+
+def _hash_case(dev, n_rays, seed=0, miss=1 / 3, layout=(16, 2)):
+    """An instant-ngp field at the published widths (HashGridConfig()'s
+    2^19 entries from resolution 16 to 2048, `layout` levels x features,
+    hidden 64, SH 4) with its table uniform in +-1 (features of order one;
+    the program's +-1e-4 would make the field a constant fog) and two poses
+    of n_rays crop rays, `miss` of them aimed off the box; -> (field,
+    origins, dirs, march box (lo, hi), settings)."""
+    from dream2real_tpu_torch.nerf.hashgrid import HashGridConfig
+
+    grid = HashGridConfig(n_levels=layout[0], n_features=layout[1])
+    cfg = NGPConfig(field_type="hashgrid", grid=grid, aabb_min=(0.0, -0.6, -0.5),
+                    aabb_max=(1.1, 0.6, 0.9))
+    st = RenderSettings(n_coarse=20, n_fine=0, near=0.05, far=2.0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    field = init_ngp_params(cfg, gen, device=dev)
+    with torch.no_grad():
+        field.table.uniform_(-1.0, 1.0, generator=gen)
+    rng = np.random.default_rng(seed)
+    origins = torch.tensor([[0.5, 0.0, -0.4], [0.45, 0.05, -0.35]], device=dev)
+    tgt = rng.uniform([0.3, -0.2, 0.0], [0.7, 0.2, 0.3], size=(2, n_rays, 3))
+    tgt[:, : int(n_rays * miss)] += 5.0
+    d = torch.tensor(tgt, dtype=torch.float32, device=dev) - origins[:, None]
+    d = d / d[..., 2:3]
+    return field, origins, d, ((0.3, -0.2, 0.0), (0.7, 0.2, 0.3)), st
+
+
+#: H2 against render_rays: the twin's MLPs are cuBLAS bf16 GEMMs and its
+#: sums over samples torch reductions, both adding in other orders than
+#: H2's tensor-core products and in-order sums, so a layer's output may round
+#: to the neighbouring bf16 value now and then; a ray's rgb, alpha and depth
+#: / far stay within H2_TOL (K1's march tolerance; 4.0e-4 the largest seen,
+#: on a clip group's 903,168 rays), and all but H2_SHARE of the rays within
+#: 1e-4 (5e-4 seen, on 2,000 rays).
+H2_TOL, H2_SHARE = 5e-3, 2e-3
+
+
+def hash_march_gaps(got: dict, want: dict, far: float) -> tuple[float, float]:
+    """(the largest gap of rgb, alpha or depth / far, the share of rays
+    with a gap over 1e-4) between two crop renders."""
+    gaps = torch.stack([(got["rgb"] - want["rgb"]).abs().amax(-1),
+                        (got["alpha"] - want["alpha"]).abs(),
+                        (got["depth"] - want["depth"]).abs() / far]).amax(0)
+    return float(gaps.max()), float((gaps > 1e-4).float().mean())
+
+
+@H2_LAYOUTS
+@pytest.mark.parametrize("n_rays", [1, 255, 256, 257, 1000, 16 * 168 * 168])
+def test_hash_march_matches_render_rays(dev, n_rays, layout):
+    """H2 at ragged live-ray counts around its 256-thread blocks and at a
+    clip group's rays (32 poses of 168^2 crop rays as two poses of 16 x
+    168^2), against its twin render_rays on the same rays, in both layouts
+    of the encoding; misses exact zeros, one launch."""
+    from dream2real_tpu_torch.nerf import hash_march as hm
+    from dream2real_tpu_torch.nerf.render import render_rays
+
+    field, origins, d, aabb, st = _hash_case(dev, n_rays, seed=n_rays, layout=layout)
+    with torch.inference_mode():
+        before = hm.hash_march.launches
+        got = hm.march_rays_hash(hm.pack(field), origins, d, aabb, st)
+        assert hm.hash_march.launches == before + 1
+        want = render_rays(field, origins[:, None].expand(d.shape), d, st, march_aabb=aabb)
+    worst, share = hash_march_gaps(got, want, st.far)
+    print(f"H2 vs render_rays, {2 * n_rays} rays: worst {worst:.3e}, share over 1e-4 {share:.4f}")
+    assert worst <= H2_TOL and share <= H2_SHARE
+    t0, t1 = mk.march_ranges(origins, d, aabb, st)
+    miss = ~(t1 > t0).reshape(d.shape[:2])
+    assert not got["alpha"][miss].any() and not got["rgb"][miss].any()
+    assert float(got["alpha"].max()) > 0.5  # the rays that hit see the field
+
+
+@H2_LAYOUTS
+@pytest.mark.parametrize("min_t", [1e-4, 0.5])
+def test_hash_march_early_exit_bitexact(dev, min_t, layout):
+    """The exact early exit (a ray stops under min_transmittance, a sample
+    outside the boxes or of weight zero skips its MLPs) gives the bits of
+    marching every sample."""
+    from dream2real_tpu_torch.nerf import hash_march as hm
+
+    field, origins, d, aabb, st = _hash_case(dev, 3000, seed=3, miss=0.1, layout=layout)
+    st = st._replace(min_transmittance=min_t)
+    packed = hm.pack(field)
+    on = hm.march_rays_hash(packed, origins, d, aabb, st, early_exit=True)
+    off = hm.march_rays_hash(packed, origins, d, aabb, st, early_exit=False)
+    for k in ("rgb", "alpha", "depth"):
+        assert torch.equal(on[k], off[k])
+
+
+def test_hash_march_no_live_ray_launches_and_gives_zeros(dev):
+    """A clip group whose rays all miss: one launch, exact zeros."""
+    from dream2real_tpu_torch.nerf import hash_march as hm
+
+    field, origins, d, aabb, st = _hash_case(dev, 64, miss=1.0)
+    before = hm.hash_march.launches
+    out = hm.march_rays_hash(hm.pack(field), origins, d, aabb, st)
+    assert hm.hash_march.launches == before + 1
+    for k in ("rgb", "alpha", "depth"):
+        assert not out[k].any()
+
+
+def test_hash_march_launches_on_every_card(dev):
+    """H2 on each card in turn, after launches on the first: its
+    shared-memory limit and grid are set once a card, so every card's
+    launch runs and matches render_rays there."""
+    from dream2real_tpu_torch.nerf import hash_march as hm
+    from dream2real_tpu_torch.nerf.render import render_rays
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    for layout in ((16, 2), (8, 4)):
+        for i in list(range(n)) + [0]:
+            di = torch.device("cuda", i)
+            field, origins, d, aabb, st = _hash_case(di, 1000, seed=i, layout=layout)
+            with torch.inference_mode():
+                got = hm.march_rays_hash(hm.pack(field), origins, d, aabb, st)
+                want = render_rays(field, origins[:, None].expand(d.shape), d, st,
+                                   march_aabb=aabb)
+            worst, share = hash_march_gaps(got, want, st.far)
+            print(f"H2 on cuda:{i}, {layout}: worst {worst:.3e}, share over 1e-4 {share:.4f}")
+            assert worst <= H2_TOL and share <= H2_SHARE
+            assert got["rgb"].device == di and float(got["alpha"].max()) > 0.5
+
+
+def test_hash_crop_render_runs_h2_once_and_waits_nowhere(dev):
+    """render_pose_cropped with a hash-grid fg field on the card: one H2
+    launch (the counter field.hash_march and its span under a profiler), no
+    K1, and nothing that waits for the device."""
+    from dream2real_tpu_torch.nerf import combined, hash_march as hm
+    from dream2real_tpu_torch.ops import cameras
+    from dream2real_tpu_torch.utils import profiling
+
+    field, *_ = _hash_case(dev, 1)
+    st = RenderSettings(n_coarse=20, n_fine=0, near=0.05, far=2.0)
+    res, crop = 112, 48
+    K = torch.tensor([[0.9 * res, 0, res / 2], [0, 0.9 * res, res / 2], [0, 0, 1.0]], device=dev)
+    dirs_cam = cameras.pixel_dirs(res, res, K.cpu().numpy(), device=dev)
+    T_WO = torch.eye(4, device=dev)
+    T_WO[:3, 3] = torch.tensor([0.5, 0.0, 0.15], device=dev)
+    T_WC = torch.tensor([[1, 0, 0, 0.5], [0, -1, 0, 0.0], [0, 0, -1, 0.7], [0, 0, 0, 1.0]],
+                        device=dev)
+    poses = T_WO[None].repeat(8, 1, 1)
+    poses[:, 0, 3] += torch.linspace(-0.05, 0.05, 8, device=dev)
+    bg = combined.BackgroundView(rgb=torch.zeros(res, res, 3, device=dev),
+                                 alpha=torch.ones(res, res, device=dev),
+                                 depth=torch.full((res, res), 100.0, device=dev))
+    bg_u8 = combined.background_only_image(bg)
+    aabb = (torch.tensor((0.3, -0.2, 0.0), device=dev), torch.tensor((0.7, 0.2, 0.3), device=dev))
+    packed = combined.pack_crop(field, st, dev)
+    assert isinstance(packed, hm.HashMarchParams)
+    args = (field, st, dirs_cam, K, aabb, crop, T_WO, T_WC, bg, bg_u8, poses)
+    with torch.inference_mode():
+        want = combined.render_pose_cropped(*args, packed=packed)
+        torch.cuda.synchronize()
+        k1, h2 = mk.march.launches, hm.hash_march.launches
+        profiling.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = combined.render_pose_cropped(*args, packed=packed)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counted = profiling.counters()
+        assert torch.equal(got, want) and got.shape == (8, res, res, 3)
+        assert (mk.march.launches, hm.hash_march.launches) == (k1, h2 + 1)
+        assert counted.get("field.hash_march") == 1
+        assert [s["name"] for s in profiling.spans()].count("field.hash_march") == 1
+
+
+# The features H1 gives a fixed set of 2^16 points on a fixed table in +-1
+# at HashGridConfig()'s widths (numpy's generator, seed 5), as sha256 of
+# their bf16 bytes: H1 before its level arithmetic moved into hash.cuh.
+H1_FEATURES_SHA256 = "957e230d1aa3e9581f0008c9120cdf35c3a22900c6f1b5f77b2de46c3f532560"
+
+
+def test_h1_is_bit_for_bit_what_it_was(dev):
+    """H1's forward after the move of its level arithmetic into hash.cuh,
+    shared with H2: the same bits as before it."""
+    import hashlib
+
+    from dream2real_tpu_torch.nerf.hashgrid import HashGridConfig, hash_encode
+
+    cfg = HashGridConfig()
+    rng = np.random.default_rng(5)
+    pos = torch.tensor(rng.uniform(-0.05, 1.05, (1 << 16, 3)), dtype=torch.float32, device=dev)
+    table = torch.tensor(rng.uniform(-1.0, 1.0, (cfg.n_levels, cfg.table_size, cfg.n_features)),
+                         dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        got = hash_encode(pos, table, cfg)
+    digest = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    print(f"H1 features sha256 {digest}")
+    assert digest == H1_FEATURES_SHA256

@@ -14,6 +14,8 @@ spans the scorer and the trainer record.
 - On a card (marked ``cuda``): a kernel launched inside a device span that
   closes after a synchronise has its launch call and its device operation
   inside the span's interval on the profiler's timeline.
+- ``tools/span_report.py``'s account of a block's idle gaps: each gap named
+  by the operations that bound it, its size, and the launches a group.
 """
 
 import threading
@@ -326,3 +328,35 @@ def test_card_launch_and_kernel_fall_inside_their_span():
         assert s["start_ns"] <= ev.start_ns() <= ev.start_ns() + ev.duration_ns() \
             <= s["end_ns"], (ev.name(), ev.start_ns(), s)
     assert torch.equal(y[:2, :2], x[:2, :2] * 2.0 + 1.0)
+
+
+def test_span_report_names_each_gap_by_the_operations_around_it():
+    """Overlapping operations leave no gap; a gap is named after the
+    operation that ended last before it, not the one that started last;
+    operations outside the interval are not counted; sizes and per-group
+    counts add up."""
+    from benchmark.profile import Trace
+    from tools.span_report import gap_pairs
+
+    us = 1e-6
+    ops = [("void (anonymous namespace)::gemm_tma<1, 256>(args)", 0.0, 100 * us),
+           ("ln_rows(x)", 10 * us, 20 * us),         # inside the GEMM: no gap
+           ("attn_fwd<0>", 101 * us, 50 * us),       # 1 us after the GEMM
+           ("void (anonymous namespace)::hash_march<2, true>(float const*)", 156 * us,
+            30 * us),                                # 5 us after attn_fwd
+           ("gemm_tma<1, 256>(args)", 386 * us, 10 * us),  # 200 us after H2
+           ("late", 900 * us, 1 * us)]               # outside the interval
+    host = [("cudaLaunchKernel", 0.0, 2 * us), ("cudaLaunchKernel", 50 * us, 80 * us),
+            ("cudaMemcpyAsync", 60 * us, 1 * us)]
+    got = gap_pairs(Trace(ops=ops, host=host, window_s=1e-3, t0_s=0.0), 0.0, 500 * us, 2)
+    assert got["ops_per_group"] == 2.5 and got["gaps_per_group"] == 1.5
+    assert got["launch_calls_per_group"] == 1.0
+    assert got["launch_calls_over_50us_per_group"] == 0.5
+    assert got["launch_call_ms_per_group"] == pytest.approx(0.041)
+    pairs = {p["pair"]: p for p in got["by_pair"]}
+    assert list(pairs) == ["hash_march -> gemm_tma", "attn_fwd -> hash_march",
+                           "gemm_tma -> attn_fwd"]
+    assert pairs["gemm_tma -> attn_fwd"]["ms"] == pytest.approx(1e-3)
+    assert pairs["hash_march -> gemm_tma"]["per_group"] == 0.5
+    sizes = {k: v["per_group"] for k, v in got["gap_sizes"].items()}
+    assert sizes == {"<2us": 0.5, "2-10us": 0.5, "10-100us": 0.0, ">=100us": 0.5}

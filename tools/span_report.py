@@ -38,6 +38,52 @@ def idle_by_span(trace, line, at, lo=None, hi=None) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def _short(name: str) -> str:
+    """A kernel's name without its return type, namespace wrapper, template
+    and arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("<")[0].split("(")[0][:48]
+
+
+def gap_pairs(trace, lo: float, hi: float, groups: int, top: int = 12) -> dict:
+    """The device's idle inside [lo, hi] seconds by what bounds each gap:
+    the operation that last ended before it and the one that starts it
+    (names cut at their arguments), with the gaps' count and milliseconds
+    a clip group; the gaps' sizes; the device operations and the host's
+    launch calls a group, and the host's time inside launch calls (long
+    calls wait for room in the launch queue: the host ahead of the device)."""
+    pairs: dict = defaultdict(lambda: [0, 0.0])
+    sizes = {"<2us": [0, 0.0], "2-10us": [0, 0.0], "10-100us": [0, 0.0], ">=100us": [0, 0.0]}
+    prev, end, n_ops = None, None, 0
+    for name, s, d in trace.ops:
+        if s + d < lo or s > hi:
+            continue
+        n_ops += 1
+        if end is not None and s > end:
+            g = s - end
+            key = f"{_short(prev)} -> {_short(name)}"
+            pairs[key][0] += 1
+            pairs[key][1] += g * 1e3
+            us = g * 1e6
+            b = "<2us" if us < 2 else "2-10us" if us < 10 else "10-100us" if us < 100 \
+                else ">=100us"
+            sizes[b][0] += 1
+            sizes[b][1] += g * 1e3
+        if end is None or s + d >= end:
+            prev, end = name, s + d
+    launches = [(n, d) for n, t, d in trace.host if "LaunchKernel" in n and lo <= t <= hi]
+    g = max(groups, 1)
+    best = sorted(pairs.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "ops_per_group": n_ops / g, "launch_calls_per_group": len(launches) / g,
+        "launch_call_ms_per_group": sum(d for _, d in launches) * 1e3 / g,
+        "launch_calls_over_50us_per_group": sum(d > 50e-6 for _, d in launches) / g,
+        "gaps_per_group": sum(v[0] for v in sizes.values()) / g,
+        "gap_sizes": {k: {"per_group": v[0] / g, "ms": v[1]} for k, v in sizes.items()},
+        "by_pair": [{"pair": k, "per_group": v[0] / g, "ms": v[1]} for k, v in best],
+    }
+
+
 def scoring_blocks(spans: list, trace, line, at) -> list:
     by_req: dict = defaultdict(list)
     for s in spans:
@@ -64,6 +110,7 @@ def scoring_blocks(spans: list, trace, line, at) -> list:
             "slab_host_ms": total("score.slab", None), "drain_host_ms": total("score.drain", None),
             "bg_render_host_ms": total("score.bg_render", None),
             "idle_ms": sum(idle.values()), "idle_by_span_ms": idle,
+            "gaps": gap_pairs(trace, lo, hi, sum(s["name"] == "score.render" for s in mine)),
         })
     return out
 
